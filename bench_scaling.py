@@ -1,25 +1,24 @@
 """Scaling benchmark: data-parallel alignment throughput vs device count.
 
-Weak-scaling methodology for the BASELINE.md target (">=80% weak-scaling
-efficiency to 2 hosts"): per device count N, a batch of N * pairs_per_device
-frame pairs is sharded over the mesh 'data' axis and aligned repeatedly;
+Weak scaling: per device count N, a batch of N * pairs_per_device frame
+pairs is sharded over the mesh 'data' axis and aligned repeatedly;
 efficiency(N) = throughput(N) / (N * throughput(1)). Tracking is
 communication-free under data parallelism (each pair lives on one device,
-parallel/batch.py), so on real ICI-connected chips the efficiency loss is
-only dispatch/collectless-overhead — measure it with:
+parallel/batch.py), so the efficiency loss is dispatch overhead alone.
 
     python bench_scaling.py                    # all power-of-2 mesh sizes
     python bench_scaling.py --devices 1,2,4    # specific sizes
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python bench_scaling.py --shape 96,128  # virtual-mesh validation
 
-On this dev container only ONE real TPU chip is attached; the virtual CPU
-mesh validates the harness and sharding (devices share 2 physical cores, so
-its "efficiency" is NOT a hardware measurement). The second mode below
-measures what one real chip gives: batch-size scaling at N=1 (how much a
-single dispatch amortizes with more pairs per batch).
+The virtual CPU mesh validates the harness and the sharding only: its
+devices share the host's cores, so its "efficiency" is not a hardware
+measurement. The second mode measures one device's batch-size scaling at
+N=1 (how much a single dispatch amortizes with more pairs per batch); the
+third, multi-stream serving (make_multi_sequence_server).
 
-Prints one JSON line per measurement plus a summary table.
+Prints the device (platform, kind, count, and the card's name and power
+limit) and then one JSON line per measurement.
 """
 
 from __future__ import annotations
@@ -53,7 +52,9 @@ def main() -> int:
     import jax
 
     from phovo_tpu.apps._bootstrap import enable_compilation_cache
+    from phovo_tpu.utils.device import print_device
 
+    print_device()
     enable_compilation_cache()
     import jax.numpy as jnp
 
@@ -113,7 +114,7 @@ def main() -> int:
             print(f"# skipping N={n}: only {n_avail} devices")
             continue
         mesh = make_mesh(n)
-        align = make_data_parallel_aligner(mesh, cfg, use_fused=True)
+        align = make_data_parallel_aligner(mesh, cfg)
         B = n * args.pairs_per_device
         batch = batch_of(B)
         init = jnp.zeros((B, 6), jnp.float32)
@@ -133,7 +134,7 @@ def main() -> int:
     # --- single-device batch-size sweep ------------------------------------
     if not args.skip_batch_sweep:
         mesh = make_mesh(1)
-        align = make_data_parallel_aligner(mesh, cfg, use_fused=True)
+        align = make_data_parallel_aligner(mesh, cfg)
         for B in (int(x) for x in args.batch_sizes.split(",")):
             batch = batch_of(B)
             init = jnp.zeros((B, 6), jnp.float32)
@@ -166,13 +167,12 @@ def main() -> int:
         #   fixed      — min_gradient_norm 0, every pair runs the full 75
         #                iterations (identical work; baseline-comparable)
         #   early_exit — the shipped presets' gradient-norm termination
-        #                (min_gradient_norm 300): the DEPLOYMENT semantics,
-        #                ~2.6x the fixed-iteration ceiling at 8 streams.
+        #                (min_gradient_norm 300): the DEPLOYMENT semantics.
         # p50/p99 are per-DISPATCH latencies (one dispatch = S streams x
         # T-1 pairs): the serving path's chunk-level latency distribution.
         cfg_ee = dataclasses.replace(cfg, min_gradient_norms=(300.0,) * 5)
         for semantics, c in (("fixed", cfg), ("early_exit", cfg_ee)):
-            serve = make_multi_sequence_server(mesh, c, use_fused=True)
+            serve = make_multi_sequence_server(mesh, c)
             for S in (int(x) for x in args.streams.split(",")):
                 Is = jnp.asarray(np.broadcast_to(seq_I, (S, T, H, W)).copy())
                 Ds = jnp.asarray(np.broadcast_to(seq_D, (S, T, H, W)).copy())

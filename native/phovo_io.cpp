@@ -1,6 +1,6 @@
 // phovo_io — native TUM RGB-D dataset streaming runtime.
 //
-// TPU-native re-design of the reference's C++ data-source stack
+// Re-design of the reference's C++ data-source stack
 // (CCameraRecord.h:63-113 index parsing, CImageReader.h:43-83 grayscale /
 // 16-bit decode, CMultiSensorDataSource.h:74-91 paired pulling): a
 // multi-threaded decode-ahead pipeline so PNG decode overlaps device

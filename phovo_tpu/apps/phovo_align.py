@@ -41,9 +41,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-diff", default=None,
                    help="write |target - warped source| image here (the "
                         "reference's imshow verification, …cpp:107-112)")
-    p.add_argument("--mix-mode", default=None, choices=["f32", "bf16x2g", "bf16x2", "bf16"],
-                   help="sampling-matmul precision in the fused TPU kernels "
-                        "(overrides the config)")
     p.add_argument("--save-diff-dir", default=None,
                    help="with visualizeIterations: true in the config, write "
                         "a per-GN-iteration diff PNG into this directory (the "
@@ -82,9 +79,7 @@ def _main(argv=None) -> int:
     from phovo_tpu.models import BACKENDS
     from phovo_tpu.utils.config import load_config
 
-    from phovo_tpu.utils.config import override_config
-
-    cfg = override_config(load_config(args.config), mix_mode=args.mix_mode)
+    cfg = load_config(args.config)
     intr = parse_intrinsics(args.intrinsics)
 
     src_i = cv2.imread(args.source_intensity, cv2.IMREAD_GRAYSCALE)

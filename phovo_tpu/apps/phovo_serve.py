@@ -52,8 +52,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warm-start", action="store_true")
     p.add_argument("--max-frames", type=int, default=None,
                    help="cap on aligned pairs per stream")
-    p.add_argument("--mix-mode", default=None,
-                   choices=["f32", "bf16x2g", "bf16x2", "bf16"])
     p.add_argument("--quiet", "-q", action="store_true")
     return p
 
@@ -106,10 +104,10 @@ def _main(argv=None) -> int:
     from phovo_tpu.datasets.tum import prefetch
     from phovo_tpu.parallel.batch import make_chunked_sequence_server
     from phovo_tpu.parallel.mesh import make_mesh
-    from phovo_tpu.utils.config import load_config, override_config
+    from phovo_tpu.utils.config import load_config
     from phovo_tpu.utils.trajectory import TrajectoryWriter
 
-    cfg = override_config(load_config(args.config), mix_mode=args.mix_mode)
+    cfg = load_config(args.config)
     intr = parse_intrinsics(args.intrinsics)
     S = len(args.dataset)
 
@@ -133,9 +131,7 @@ def _main(argv=None) -> int:
             )
             return 1
     mesh = make_mesh(n_data, pixel_parallel=1)
-    serve = make_chunked_sequence_server(
-        mesh, cfg, use_fused=True, warm_start=args.warm_start
-    )
+    serve = make_chunked_sequence_server(mesh, cfg, warm_start=args.warm_start)
 
     streams = [prefetch(iter(s)) for s in seqs]
     names = _stream_names(args.dataset)

@@ -51,9 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "and a final pose-graph optimization")
     p.add_argument("--chunk", type=int, default=1,
                    help="buffer N frames and align all consecutive pairs in "
-                        "one device program (lax.scan; every backend; in "
-                        "keyframe mode: chunked tracking, analytic only) — "
-                        "amortizes per-dispatch latency ~20x")
+                        "one device program (every backend; zero-init pairs "
+                        "solve as one batch; in keyframe mode: chunked "
+                        "tracking, analytic and ceres) — amortizes the "
+                        "per-dispatch latency")
     p.add_argument("--ba-iterations", type=int, default=0,
                    help="keyframe mode: after the pose graph, refine sliding "
                         "keyframe windows with photometric bundle adjustment "
@@ -129,17 +130,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--robust-delta", type=float, default=None,
                    help="override the config's robust loss delta "
                         "(residual units, intensity 0..1)")
-    p.add_argument("--band-fallback", type=float, default=None,
-                   help="re-run a pair on the exact full-band path when the "
-                        "fused kernels' banded sampling window dropped more "
-                        "than this fraction of a level's valid pixels "
-                        "(fast-rotation observability guard; default 0.02, "
-                        "0 disables)")
-    p.add_argument("--mix-mode", default=None, choices=["f32", "bf16x2g", "bf16x2", "bf16"],
-                   help="sampling-matmul precision in the fused TPU kernels "
-                        "(overrides the config; bf16x2 is ~1.4x faster "
-                        "end-to-end with sample error below the u8 image "
-                        "quantization)")
     p.add_argument("--quiet", "-q", action="store_true")
     return p
 
@@ -176,7 +166,7 @@ def _main(argv=None) -> int:
     from phovo_tpu.utils.config import override_config
 
     cfg = override_config(
-        load_config(args.config), mix_mode=args.mix_mode,
+        load_config(args.config),
         robust_loss=args.robust_loss, robust_delta=args.robust_delta,
     )
     intr = parse_intrinsics(args.intrinsics)
@@ -232,13 +222,11 @@ def _main(argv=None) -> int:
 
     vo = BACKENDS[args.backend](cfg)
     vo.set_intrinsic_matrix(np.asarray(intr.matrix()))
-    if args.band_fallback is not None:
-        vo.band_fallback = args.band_fallback
 
     if args.mode == "keyframe":
         return _run_keyframe_mode(args, vo, seq)
     if args.chunk > 1:
-        return _run_chunked(args, cfg, intr, seq, vo.band_fallback)
+        return _run_chunked(args, cfg, intr, seq)
 
     pipeline = VisualOdometryPipeline(
         vo, warm_start=args.warm_start, checkpoint_path=args.checkpoint
@@ -331,7 +319,7 @@ def _maybe_eval(args) -> None:
     print(f"RPE rmse: {rpe['trans_rmse']:.4f} m / {rpe['rot_rmse_deg']:.3f} deg")
 
 
-def _run_chunked(args, cfg, intr, seq, band_fallback=0.0) -> int:
+def _run_chunked(args, cfg, intr, seq) -> int:
     """Buffered sequence processing: chunks of N frames aligned per device
     dispatch via align_sequence_chunk.
 
@@ -518,94 +506,8 @@ def _run_chunked(args, cfg, intr, seq, band_fallback=0.0) -> int:
             "biobjective": align_sequence_chunk_biobjective,
         }[args.backend]
         backend_static = (
-            "linearizer" if args.backend in ("ceres", "autodiff") else True
+            ("linearizer",) if args.backend in ("ceres", "autodiff") else ()
         )
-
-        # single-pair retry for the band_fallback observability gate:
-        # use_fused=False is the exact full-band path for flagged pairs,
-        # use_fused=True re-aligns a downstream pair from a corrected
-        # warm-start init (models/base.py band_masked_fraction rationale)
-        def _single(si, sd, ti, td, init, use_fused):
-            from phovo_tpu.models.analytic import align_analytic
-            from phovo_tpu.models.autodiff import align_autodiff
-            from phovo_tpu.models.biobjective import align_biobjective
-            from phovo_tpu.models.ic import align_ic
-
-            a = (si, sd, ti, td, intr, init, cfg)
-            if args.backend in ("ceres", "autodiff"):
-                return align_autodiff(*a, "linearizer", use_fused=use_fused)
-            fn = {
-                "analytic": align_analytic,
-                "ic": align_ic,
-                "biobjective": align_biobjective,
-            }[args.backend]
-            return fn(*a, use_fused=use_fused)
-
-        n_fallbacks = 0
-
-        def resolve_states(res, m, host_frames):
-            """Fetch the chunk's states, re-running band-masked pairs on
-            the exact full-band path (models/base.py band_fallback).
-
-            Under --warm-start the in-chunk scan seeded pair k+1 from pair
-            k's PRE-fallback state, so a corrected state must propagate:
-            every pair after the first flagged one is re-aligned from the
-            corrected previous state (full-band when itself flagged — by
-            the chunk diagnostics or by its own re-run — fused otherwise)."""
-            nonlocal n_fallbacks
-            states = np_.asarray(res.state[:m])
-            if band_fallback <= 0:
-                return states
-            from phovo_tpu.models.base import (
-                band_masked_fraction,
-                band_masked_fractions,
-            )
-
-            fracs = band_masked_fractions(
-                np_.asarray(res.band_masked[:m]),
-                np_.asarray(res.num_valid[:m]),
-            )
-            flagged = np_.nonzero(fracs > band_fallback)[0]
-            if len(flagged) == 0:
-                return states
-            (ci, cd), Ii, Dd = host_frames
-            states = np_.array(states)
-            flagged_set = {int(k) for k in flagged}
-            rerun = (
-                range(int(flagged[0]), m) if args.warm_start
-                else [int(k) for k in flagged]
-            )
-            for k in rerun:
-                si, sd = (ci, cd) if k == 0 else (Ii[k - 1], Dd[k - 1])
-                ti, td = Ii[k], Dd[k]
-                if sd.dtype == np_.uint16:
-                    sd = sd.astype(np_.float32) * np_.float32(depth_scale)
-                if td.dtype == np_.uint16:
-                    td = td.astype(np_.float32) * np_.float32(depth_scale)
-                init = (
-                    states[k - 1].astype(np_.float32)
-                    if (args.warm_start and k > 0)
-                    else np_.zeros(6, np_.float32)
-                )
-                dev = (
-                    jnp.asarray(si), jnp.asarray(sd, jnp.float32),
-                    jnp.asarray(ti), jnp.asarray(td, jnp.float32),
-                    jnp.asarray(init),
-                )
-                if k in flagged_set:
-                    rb = _single(*dev, use_fused=False)
-                    n_fallbacks += 1
-                else:
-                    rb = _single(*dev, use_fused=True)
-                    if band_masked_fraction(
-                        np_.asarray(rb.band_masked),
-                        np_.asarray(rb.num_valid),
-                    ) > band_fallback:
-                        rb = _single(*dev, use_fused=False)
-                        n_fallbacks += 1
-                states[k] = np_.asarray(rb.state)
-            return states
-        host_carry = (I0[0], D0[0])  # storage-dtype twin of the device carry
         try:
             for Ii, Dd, ts in stream:
                 t0 = _time.perf_counter()
@@ -614,7 +516,7 @@ def _run_chunked(args, cfg, intr, seq, band_fallback=0.0) -> int:
                     # pad the short trailing chunk by repeating its last
                     # frame: the padded batch reuses the already-compiled
                     # chunk-size program (a second compile for the odd size
-                    # costs ~15 s — more than aligning the whole chunk);
+                    # costs more than aligning the whole chunk);
                     # the padding pairs align identical frames and their
                     # states are discarded below
                     reps = args.chunk - m
@@ -622,33 +524,27 @@ def _run_chunked(args, cfg, intr, seq, band_fallback=0.0) -> int:
                     Dd = np_.concatenate([Dd, np_.repeat(Dd[-1:], reps, 0)])
                 res, carry_i, carry_d = chunk_fn(
                     carry_i, carry_d, jnp.asarray(Ii), jnp.asarray(Dd),
-                    intr, cfg, backend_static, args.warm_start,
+                    intr, cfg, *backend_static, args.warm_start,
                     depth_scale if Dd.dtype == np_.uint16 else None,
                 )
                 if pending is not None:
-                    p_res, p_m, p_hosts, p_ts, p_t0 = pending
+                    p_res, p_m, p_ts, p_t0 = pending
                     pending = None
-                    if integrate(resolve_states(p_res, p_m, p_hosts), p_ts,
-                                 out, t0 - p_t0):
+                    if integrate(np_.asarray(p_res.state[:p_m]), p_ts, out,
+                                 t0 - p_t0):
                         break
-                pending = (res, m, (host_carry, Ii, Dd), ts, t0)
-                host_carry = (Ii[m - 1], Dd[m - 1])
+                pending = (res, m, ts, t0)
         finally:
             # flush the chunk already aligned even if a later chunk's IO or
             # dispatch raises — the trajectory stays truncated, not holey
             if pending is not None:
-                p_res, p_m, p_hosts, p_ts, p_t0 = pending
-                integrate(resolve_states(p_res, p_m, p_hosts), p_ts, out,
+                p_res, p_m, p_ts, p_t0 = pending
+                integrate(np_.asarray(p_res.state[:p_m]), p_ts, out,
                           _time.perf_counter() - p_t0)
     if metrics is not None:
         metrics.close()
     if not args.quiet:
         print(f"wrote {n_done} poses to {args.output}")
-        if n_fallbacks:
-            print(
-                f"band fallback: {n_fallbacks} pair(s) re-aligned full-band "
-                "(banded window exceeded --band-fallback)"
-            )
     _maybe_eval(args)
     return 0
 
@@ -667,22 +563,9 @@ def _run_keyframe_mode(args, vo, seq) -> int:
         ] if on
     ]
     chunked = args.chunk > 1
-    if chunked and args.backend not in ("analytic", "ceres"):
+    if chunked and args.backend not in ("analytic", "ceres", "autodiff"):
         ignored.append("--chunk")
         chunked = False
-    if chunked and args.backend == "ceres":
-        # the ceres backend has no serial chunk scan; it needs the
-        # level-major batched TR path. When the frame shape is known up
-        # front (raw loader) gate here; otherwise run_chunked raises
-        # with its own message on ineligible configs.
-        from phovo_tpu.models.autodiff import tr_track_levelmajor_eligible
-
-        if hasattr(seq, "height") and not tr_track_levelmajor_eligible(
-            vo.config, (seq.height, seq.width),
-            getattr(vo, "jacobian_mode", "linearizer"),
-        ):
-            ignored.append("--chunk (ceres: no level-major tiling)")
-            chunked = False
     if ignored:
         print(
             f"note: {', '.join(ignored)} not supported in keyframe mode "
@@ -805,12 +688,6 @@ def _run_keyframe_mode(args, vo, seq) -> int:
         f"wrote {len(tracked)} poses ({len(kvo.keyframes)} keyframes, "
         f"{len(kvo.loop_closures)} loop closures) to {args.output}"
     )
-    nfb = kvo.band_fallbacks + getattr(vo, "band_fallbacks", 0)
-    if nfb:
-        print(
-            f"band fallback: {nfb} alignment(s) re-run full-band "
-            "(banded window exceeded --band-fallback)"
-        )
     _maybe_eval(args)
     return 0
 

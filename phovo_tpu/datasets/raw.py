@@ -1,9 +1,8 @@
 """Raw memory-mapped sequence format: decode once, stream at memcpy speed.
 
 The TUM layout stores every frame as a PNG, so sequence throughput is bounded
-by inflate speed — on a 2-core host the C++ decode-ahead loader sustains ~40
-pairs/s while the device side of the pipeline can consume >1500 pairs/s
-(BASELINE.md). For production replay/serving, `convert_to_raw` decodes a
+by inflate speed, well below what the device side of the pipeline consumes.
+For production replay/serving, `convert_to_raw` decodes a
 sequence ONCE into flat memory-mapped arrays:
 
     <out>/meta.json            {"n", "height", "width", "depth_scale", ...}
@@ -16,10 +15,10 @@ slices — the only per-pixel host work left in the pipeline is one memcpy
 into the device transfer buffer (u8 intensity and u16 depth counts stay in
 their storage dtypes end-to-end; the jitted aligner converts both on device,
 models/analytic.py align_sequence_chunk — this also halves the bytes moved
-per frame vs float32 depth, which matters when the chip is remote-attached).
+per frame vs float32 depth).
 
 No counterpart exists in the reference (its CCameraRecord re-decodes PNGs
-every run, CCameraRecord.h:74-108); this is the TPU-native deployment path.
+every run, CCameraRecord.h:74-108); this is the production replay path.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ matching; TUM rgb/depth streams are NOT aligned, so association is the
 correct default for real sequences and lockstep remains for parity).
 
 Decode happens host-side (cv2); `prefetch_to_device` overlaps decode with
-TPU compute via a background thread, the TPU-native analog of the
+device compute via a background thread, the analog of the
 reference's pull-based Start()/GetData() streaming.
 """
 

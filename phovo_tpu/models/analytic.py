@@ -7,11 +7,14 @@ alignment with closed-form Jacobians and lambda-damped Gauss-Newton.
 The entire Optimize() — intensity/depth pyramids, Scharr gradients, every
 pyramid level, every GN iteration — compiles to ONE XLA program per
 (config, image shape): Python drives the static level loop at trace time,
-lax.while_loop drives iterations on-device, and the per-level linearization
-is either the fused Pallas kernel (coarse levels: warp + Jacobian + Gram
-reduction in one kernel, sampling as MXU matmuls — see ops/fused.py) or the
-packed-gather XLA pipeline (fine levels). No host round-trips inside an
+lax.while_loop drives iterations on-device, and each linearization is the
+packed-gather pipeline (ops/fused.py). No host round-trips inside an
 alignment.
+
+The work splits in two: `prep_frame_analytic` builds one frame's per-level
+products once, and `align_prepped` solves one pair from two frames'
+products. A frame chain preps every frame once and solves all its pairs as
+one batch (models/base.py align_chain).
 """
 
 from __future__ import annotations
@@ -24,19 +27,132 @@ import jax.numpy as jnp
 from phovo_tpu.models.base import (
     AlignmentResult,
     PhotoconsistencyOdometryBase,
+    align_chain,
     chunk_device_prep,
     device_unit_intensity,
-    sequence_scan,
+    stack_levels,
 )
-from phovo_tpu.ops import fused as fused_ops
 from phovo_tpu.ops import pyramid as pyr
 from phovo_tpu.ops.camera import Intrinsics
+from phovo_tpu.ops.fused import pack_target, packed_normal_equations
 from phovo_tpu.ops.residuals import normal_equations, photometric_residual_jacobian
 from phovo_tpu.solvers.gauss_newton import gauss_newton_level
 from phovo_tpu.utils.config import PhovoConfig
 
 
-@functools.partial(jax.jit, static_argnames=("config", "use_fused"))
+def prep_frame_analytic(
+    intensity: jax.Array,  # (H, W) float32 0..1
+    depth: jax.Array | None,  # (H, W) float32 meters; None for targets only
+    intr: Intrinsics,
+    config: PhovoConfig,
+) -> dict:
+    """Per-frame products for every ACTIVE pyramid level:
+    level -> (intensity (h, w), depth (h, w) or None, packed (h, w, 4)),
+    where packed = [I, gx, gy, 0] is the frame's Scharr-gradient stack for
+    the single packed gather (ops/fused.py pack_target).
+
+    A frame serves as a pair's source (intensity, depth and, for
+    gradient_at='esm', its own gradients) and as a pair's target (packed);
+    a frame chain preps each frame once. Frames that are only ever
+    targets (keyframe tracking, SetTargetFrame ignores depth —
+    …Analytic.h:480-491) pass depth=None."""
+    del intr
+    L = config.num_levels
+    blur = tuple(config.blur_filter_sizes)
+    int_p = pyr.build_pyramid(intensity, L, blur, blur_type=config.blur_type)
+    dep_p = (
+        pyr.build_pyramid(depth, L, None) if depth is not None else [None] * L
+    )
+    gx, gy = pyr.build_gradient_pyramid(int_p, tuple(config.gradient_scales))
+    return {
+        level: (int_p[level], dep_p[level], pack_target(int_p[level], gx[level], gy[level]))
+        for level in range(L)
+        if config.max_iterations[level] > 0
+    }
+
+
+def _level_linearizer(src, tgt, intr_l: Intrinsics, config: PhovoConfig):
+    """linearize(state[, sigma]) -> NormalEquations for one level, from the
+    source's and the target's prep_frame_analytic products at that level.
+    sigma (robust_loss='tdist') replaces robust_delta as the traced scale."""
+    i0, d0, p0 = src
+    p1 = tgt[2]
+    if config.gradient_at == "warped":
+
+        def linearize(s, *sigma):
+            return packed_normal_equations(
+                i0, d0, p1, s, intr_l,
+                config.min_depth, config.max_depth, config.sampling,
+                config.robust_loss,
+                sigma[0] if sigma else config.robust_delta,
+            )
+
+        return linearize
+    esm = config.gradient_at == "esm"
+
+    def linearize(s, *sigma):
+        r, J, valid = photometric_residual_jacobian(
+            i0, d0, p1[..., 0], p1[..., 1], p1[..., 2], s, intr_l,
+            min_depth=config.min_depth, max_depth=config.max_depth,
+            sampling=config.sampling, gradient_at=config.gradient_at,
+            source_grad_x=p0[..., 1] if esm else None,
+            source_grad_y=p0[..., 2] if esm else None,
+        )
+        return normal_equations(
+            r, J, valid, config.robust_loss,
+            sigma[0] if sigma else config.robust_delta,
+        )
+
+    return linearize
+
+
+def align_prepped(
+    src: dict,
+    tgt: dict,
+    intr: Intrinsics,
+    init_state: jax.Array,
+    config: PhovoConfig,
+) -> AlignmentResult:
+    """Coarse-to-fine Gauss-Newton of one pair from the source's and the
+    target's prep_frame_analytic products."""
+    L = config.num_levels
+    state = jnp.asarray(init_state, jnp.float32)
+    # robust_loss='tdist': the solver carries the adaptive residual scale and
+    # passes it as the (traced) robust_delta of each linearization; the scale
+    # flows coarse -> fine across levels (residuals are intensity
+    # differences at every level, so the estimate transfers), with
+    # scale-only burn-in passes at the first active level where only the
+    # config seed is available (ops/robust.py TDIST_BURNIN).
+    tdist = config.robust_loss == "tdist"
+    if tdist:
+        from phovo_tpu.ops.robust import TDIST_BURNIN, tdist_scale_update
+
+        sigma = jnp.float32(config.robust_delta)
+        first_active = True
+    diags = [None] * L
+    for level in range(L - 1, -1, -1):
+        if config.max_iterations[level] <= 0:
+            zero = jnp.float32(0.0)
+            diags[level] = (state, 0, zero, zero, zero)
+            continue
+        res = gauss_newton_level(
+            _level_linearizer(src[level], tgt[level], intr.at_level(level), config),
+            state,
+            max_iterations=config.max_iterations[level],
+            min_gradient_norm=config.min_gradient_norms[level],
+            lambda_step=config.lambda_steps[level],
+            adaptive_scale=sigma if tdist else None,
+            adaptive_burnin=TDIST_BURNIN if (tdist and first_active) else 0,
+        )
+        state = res.state
+        diags[level] = res
+        if tdist:
+            sigma = tdist_scale_update(res.cost, res.num_valid)
+            first_active = False
+    return stack_levels(diags)
+
+
+@functools.partial(jax.jit, static_argnames=("config",))
 def align_analytic(
     source_intensity: jax.Array,
     source_depth: jax.Array,
@@ -45,587 +161,45 @@ def align_analytic(
     intr: Intrinsics,
     init_state: jax.Array,
     config: PhovoConfig,
-    use_fused: bool = True,
 ) -> AlignmentResult:
     del target_depth
     # u8 inputs are converted on device (reference SetSourceFrame's 1/255,
     # …Analytic.h:470-471) — host-side conversion is slow and quadruples the
     # host->device transfer.
-    source_intensity = device_unit_intensity(source_intensity)
-    target_intensity = device_unit_intensity(target_intensity)
-    L = config.num_levels
-    blur = tuple(config.blur_filter_sizes)
-    int0 = pyr.build_pyramid(source_intensity, L, blur, blur_type=config.blur_type)
-    dep0 = pyr.build_pyramid(source_depth, L, None)
-    int1 = pyr.build_pyramid(target_intensity, L, blur, blur_type=config.blur_type)
-    gx1, gy1 = pyr.build_gradient_pyramid(int1, tuple(config.gradient_scales))
-    esm = config.gradient_at == "esm"
-    if esm:
-        # ESM Jacobian (Benhimane & Malis 2004): also needs the SOURCE
-        # gradient pyramid (loop-invariant — hoisted into the kernels'
-        # geometry pack, ops/fused.py pack_geometry)
-        gx0, gy0 = pyr.build_gradient_pyramid(
-            int0, tuple(config.gradient_scales)
-        )
-
-    fused_ok = (
-        use_fused
-        and config.gradient_at in ("warped", "esm")
-        and fused_ops._HAS_PALLAS
-        and jax.default_backend() == "tpu"
+    src = prep_frame_analytic(
+        device_unit_intensity(source_intensity), source_depth, intr, config
     )
-    # Per-level packed targets, hoisted out of the iteration loops.
-    packed = [None] * L
-    for level in range(L):
-        if config.max_iterations[level] <= 0:
-            continue  # skipped level: no linearization ever runs
-        H = int1[level].shape[0]
-        if fused_ok and H <= fused_ops.FUSED_MAX_H:
-            packed[level] = (
-                "pallas",
-                fused_ops.pack_target_colmajor(int1[level], gx1[level], gy1[level]),
-            )
-        elif config.gradient_at == "warped":
-            packed[level] = (
-                "packed",
-                fused_ops.pack_target(int1[level], gx1[level], gy1[level]),
-            )
-        else:
-            packed[level] = ("reference", None)
-
-    state = jnp.asarray(init_state, jnp.float32)
-    diags = [None] * L
-    # robust_loss='tdist': the solvers carry the adaptive residual scale and
-    # pass it as the (traced) robust_delta of each linearization; the scale
-    # flows coarse -> fine across levels (residuals are intensity
-    # differences at every level, so the estimate transfers), with
-    # scale-only burn-in passes at the first active level where only the
-    # config seed is available (ops/robust.py TDIST_BURNIN).
-    tdist = config.robust_loss == "tdist"
-    if tdist:
-        from phovo_tpu.ops.robust import (
-            TDIST_BURNIN, tdist_scale_update,
-        )
-
-        sigma = jnp.float32(config.robust_delta)
-        first_active = True
-    for level in range(L - 1, -1, -1):
-        intr_l = intr.at_level(level)
-        kind, tgt = packed[level] or (None, None)
-        active = config.max_iterations[level] > 0
-        burnin = TDIST_BURNIN if (tdist and active and first_active) else 0
-        if kind == "pallas":
-            # whole level (all GN iterations + solves) in one kernel call
-            from phovo_tpu.solvers.gauss_newton import GNLevelResult
-
-            st, its, gnorm, cost, nvalid, masked = fused_ops.fused_gn_level(
-                int0[level], dep0[level], tgt, intr_l, state,
-                config.min_depth, config.max_depth,
-                config.max_iterations[level],
-                config.min_gradient_norms[level],
-                config.lambda_steps[level],
-                config.sampling,
-                mix_mode=config.mix_mode,
-                robust_loss=config.robust_loss,
-                robust_delta=config.robust_delta,
-                source_grads=(gx0[level], gy0[level]) if esm else None,
-                robust_scale=sigma if tdist else None,
-                tdist_burnin=burnin,
-            )
-            state = st
-            diags[level] = GNLevelResult(st, its, gnorm, cost, nvalid, masked)
-            if tdist and active:
-                sigma = tdist_scale_update(cost, nvalid)
-                first_active = False
-            continue
-        if kind == "packed":
-
-            def linearize(s, *sigma, _lvl=level, _tgt=tgt, _intr=intr_l):
-                return fused_ops.packed_normal_equations(
-                    int0[_lvl], dep0[_lvl], _tgt, s, _intr,
-                    config.min_depth, config.max_depth, config.sampling,
-                    config.robust_loss,
-                    sigma[0] if sigma else config.robust_delta,
-                )
-
-        else:
-
-            def linearize(s, *sigma, _lvl=level, _intr=intr_l):
-                r, J, valid = photometric_residual_jacobian(
-                    int0[_lvl], dep0[_lvl], int1[_lvl], gx1[_lvl], gy1[_lvl],
-                    s, _intr,
-                    min_depth=config.min_depth, max_depth=config.max_depth,
-                    sampling=config.sampling, gradient_at=config.gradient_at,
-                    source_grad_x=gx0[_lvl] if esm else None,
-                    source_grad_y=gy0[_lvl] if esm else None,
-                )
-                return normal_equations(
-                    r, J, valid, config.robust_loss,
-                    sigma[0] if sigma else config.robust_delta,
-                )
-
-        res = gauss_newton_level(
-            linearize,
-            state,
-            max_iterations=config.max_iterations[level],
-            min_gradient_norm=config.min_gradient_norms[level],
-            lambda_step=config.lambda_steps[level],
-            adaptive_scale=sigma if tdist else None,
-            adaptive_burnin=burnin,
-        )
-        state = res.state
-        diags[level] = res
-        if tdist and active:
-            sigma = tdist_scale_update(res.cost, res.num_valid)
-            first_active = False
-
-    return AlignmentResult(
-        state=state,
-        iterations=jnp.stack([d.iterations for d in diags]),
-        gradient_norm=jnp.stack([d.gradient_norm for d in diags]),
-        cost=jnp.stack([d.cost for d in diags]),
-        num_valid=jnp.stack([d.num_valid for d in diags]),
-        band_masked=jnp.stack(
-            [jnp.asarray(d.band_masked, jnp.float32) for d in diags]
-        ),
+    tgt = prep_frame_analytic(
+        device_unit_intensity(target_intensity), None, intr, config
     )
+    return align_prepped(src, tgt, intr, init_state, config)
 
 
-def prepped_sequence_eligible(
-    config: PhovoConfig, shape, use_fused: bool
-) -> bool:
-    """True when every ACTIVE level of `config` at frame `shape` runs the
-    whole-level Pallas kernel — the precondition for the prepped sequence
-    scan (per-frame packs computed once, batched, outside the serial
-    chain)."""
-    if not (
-        use_fused
-        and fused_ops._HAS_PALLAS
-        and jax.default_backend() == "tpu"
-        and config.gradient_at in ("warped", "esm")
-    ):
-        return False
-    for level in range(config.num_levels):
-        if config.max_iterations[level] <= 0:
-            continue
-        if pyr.level_shape(tuple(shape), level)[0] > fused_ops.FUSED_MAX_H:
-            return False
-    return True
-
-
-def _use_colsplit(h: int, w: int, esm: bool) -> bool:
-    """True when level (h, w) should use the COLUMN-SPLIT layout in the
-    level-major batch kernel (ops/fused_batch.colsplit_ok + a VMEM
-    tiling): the fine level's column mask and column-mix dot shrink to
-    one full K=128 MXU pass — measured 29.7 vs 43.2 us/pair at 120x160
-    (BASELINE.md r5)."""
-    import os
-
-    from phovo_tpu.ops.fused_batch import _batch_tilings, colsplit_ok
-
-    if os.environ.get("PHOVO_COLSPLIT", "1") == "0":
-        # kill-switch, same trace-time semantics as PHOVO_LEVELMAJOR
-        # (models/base.levelmajor_enabled): toggle before first use or
-        # call jax.clear_caches()
-        return False
-    # BOTH kernel families must be able to consume the layout: the prep
-    # (prep_frame_analytic/prep_frame_targets) packs per level with this
-    # same predicate, and the packs feed GN and TR batch kernels alike
-    return bool(
-        colsplit_ok(h, w)
-        and _batch_tilings(h, w, esm, colsplit=True) is not None
-        and _batch_tilings(h, w, esm, colsplit=True, tr=True) is not None
-    )
-
-
-def prep_frame_analytic(
-    intensity: jax.Array,  # (H, W) float32 0..1
-    depth: jax.Array,  # (H, W) float32 meters
-    intr: Intrinsics,
-    config: PhovoConfig,
-    colsplit: bool = False,
-) -> dict:
-    """Per-frame products for the prepped sequence scan: for every ACTIVE
-    pyramid level, (i0_flat (1, NP), geom (4|6, NP), t_all (3*HP, W)).
-
-    In a frame chain every frame is the TARGET of pair k-1 and the SOURCE
-    of pair k; the per-pair align path therefore built each frame's
-    pyramids twice, serially, inside the scan. This prep runs once per
-    frame and vmaps over the whole chunk (one batched resize/Scharr/pack
-    pass instead of B serial small ones — the XLA glue between the level
-    kernels was ~20% of the headline frame time)."""
-    L = config.num_levels
-    blur = tuple(config.blur_filter_sizes)
-    int_p = pyr.build_pyramid(intensity, L, blur, blur_type=config.blur_type)
-    dep_p = pyr.build_pyramid(depth, L, None)
-    gx, gy = pyr.build_gradient_pyramid(int_p, tuple(config.gradient_scales))
-    esm = config.gradient_at == "esm"
-    out = {}
-    for level in range(L):
-        if config.max_iterations[level] <= 0:
-            continue
-        H, W = int_p[level].shape
-        if colsplit and _use_colsplit(H, W, esm):
-            # column-split layout for the level-major batch kernel
-            from phovo_tpu.ops.fused_batch import (
-                colsplit_gather,
-                colsplit_order,
-                pack_target_colsplit,
-            )
-
-            order = jnp.asarray(colsplit_order(H, W))
-            i0f = colsplit_gather(int_p[level].reshape(1, H * W), order)
-            NP0 = -(-(H * W) // 128) * 128
-            geom_full = fused_ops.pack_geometry(
-                dep_p[level], intr.at_level(level), config.min_depth,
-                config.max_depth, NP0,
-                (gx[level], gy[level]) if esm else None,
-            )
-            geom = colsplit_gather(geom_full[:, : H * W], order)
-            t_all = pack_target_colsplit(
-                int_p[level], gx[level], gy[level]
-            )
-            out[level] = (i0f, geom, t_all)
-            continue
-        NP, _ = fused_ops._pick_tile_pixels(H, W)
-        i0f = fused_ops._pad_flat(int_p[level].reshape(1, H * W), NP)
-        geom = fused_ops.pack_geometry(
-            dep_p[level], intr.at_level(level), config.min_depth,
-            config.max_depth, NP,
-            (gx[level], gy[level]) if esm else None,
-        )
-        t_all = fused_ops.pack_target_colmajor(
-            int_p[level], gx[level], gy[level]
-        )
-        out[level] = (i0f, geom, t_all)
-    return out
-
-
-def align_prepped(
-    src: dict,
-    tgt: dict,
-    shape: tuple[int, int],
-    intr: Intrinsics,
-    init_state: jax.Array,
-    config: PhovoConfig,
-    interpret: bool = False,
-) -> AlignmentResult:
-    """Coarse-to-fine alignment from prepped per-frame packs (the pallas
-    whole-level path at every active level; see prep_frame_analytic).
-    Produces results identical to align_analytic(use_fused=True) — same
-    kernels, same packs, only computed once per frame instead of per
-    pair."""
-    from phovo_tpu.solvers.gauss_newton import GNLevelResult
-
-    H0, W0 = shape
-    L = config.num_levels
-    esm = config.gradient_at == "esm"
-    tdist = config.robust_loss == "tdist"
-    if tdist:
-        from phovo_tpu.ops.robust import TDIST_BURNIN, tdist_scale_update
-
-        sigma = jnp.float32(config.robust_delta)
-        first_active = True
-    state = jnp.asarray(init_state, jnp.float32)
-    diags = [None] * L
-    for level in range(L - 1, -1, -1):
-        if config.max_iterations[level] <= 0:
-            zero = jnp.float32(0.0)
-            diags[level] = GNLevelResult(state, jnp.int32(0), zero, zero, zero)
-            continue
-        H, W = pyr.level_shape((H0, W0), level)
-        i0f, geom, _ = src[level]
-        _, _, t_all = tgt[level]
-        burnin = (
-            TDIST_BURNIN if (tdist and first_active) else 0
-        )
-        st, its, gnorm, cost, nvalid, masked = fused_ops.fused_gn_level_packs(
-            i0f, geom, t_all, intr.at_level(level), state,
-            config.min_depth, config.max_depth,
-            config.max_iterations[level],
-            config.min_gradient_norms[level],
-            config.lambda_steps[level],
-            H=H, W=W, sampling=config.sampling, interpret=interpret,
-            mix_mode=config.mix_mode, robust_loss=config.robust_loss,
-            robust_delta=config.robust_delta, esm=esm,
-            robust_scale=sigma if tdist else None,
-            tdist_burnin=burnin,
-        )
-        state = st
-        diags[level] = GNLevelResult(st, its, gnorm, cost, nvalid, masked)
-        if tdist:
-            sigma = tdist_scale_update(cost, nvalid)
-            first_active = False
-    return AlignmentResult(
-        state=state,
-        iterations=jnp.stack([d.iterations for d in diags]),
-        gradient_norm=jnp.stack([d.gradient_norm for d in diags]),
-        cost=jnp.stack([d.cost for d in diags]),
-        num_valid=jnp.stack([d.num_valid for d in diags]),
-        band_masked=jnp.stack(
-            [jnp.asarray(d.band_masked, jnp.float32) for d in diags]
-        ),
-    )
-
-
-def align_sequence_prepped(
-    intensities: jax.Array,  # (B, H, W) float32 0..1 (or uint8)
-    depths: jax.Array,  # (B, H, W) float32
-    intr: Intrinsics,
-    config: PhovoConfig,
-    warm_start: bool = False,
-    interpret: bool = False,
-) -> AlignmentResult:
-    """align_sequence with the per-frame prep batched OUT of the serial
-    chain: one vmapped pyramid/Scharr/pack pass for all B frames, then a
-    scan whose carry holds the previous frame's packs (each frame's prep
-    is computed exactly once and consumed exactly once)."""
-    intensities = device_unit_intensity(intensities).astype(jnp.float32)
-    shape = intensities.shape[1:]
-    prep = jax.vmap(
-        lambda i, d: prep_frame_analytic(i, d, intr, config)
-    )(intensities, depths)
-    first = jax.tree.map(lambda a: a[0], prep)
-    rest = jax.tree.map(lambda a: a[1:], prep)
-
-    def step(carry, tgt_prep):
-        prev_prep, state_c = carry
-        init = state_c if warm_start else jnp.zeros(6, jnp.float32)
-        res = align_prepped(
-            prev_prep, tgt_prep, shape, intr, init, config,
-            interpret=interpret,
-        )
-        return (tgt_prep, res.state), res
-
-    _, results = jax.lax.scan(
-        step, (first, jnp.zeros(6, jnp.float32)), rest
-    )
-    return results
-
-
-def levelmajor_eligible(
-    config: PhovoConfig, shape, use_fused: bool, warm_start: bool
-) -> bool:
-    """True when the LEVEL-MAJOR sequence path applies: every active level
-    runs the sublane-batched kernel (ops/fused_batch.py) over the whole
-    chunk at once.  Requires the reference's zero-init pair semantics
-    (PhotoconsistencyVisualOdometry.cpp:224) — with warm_start each pair
-    depends on the previous pair's result, so pairs cannot advance in
-    lockstep — and a per-level VMEM-fitting batch tiling."""
-    from phovo_tpu.models.base import levelmajor_enabled
-
-    if not levelmajor_enabled():
-        return False
-    if warm_start or config.robust_loss == "tdist":
-        return False
-    if not prepped_sequence_eligible(config, shape, use_fused):
-        return False
-    from phovo_tpu.ops.fused_batch import _batch_tilings
-
-    esm = config.gradient_at == "esm"
-    for level in range(config.num_levels):
-        if config.max_iterations[level] <= 0:
-            continue
-        h, w = pyr.level_shape(tuple(shape), level)
-        if _batch_tilings(h, w, esm) is None:
-            return False
-    return True
-
-
-def align_pairs_levelmajor(
-    prep_pairs: dict,
-    shape: tuple[int, int],
-    intr: Intrinsics,
-    config: PhovoConfig,
-    interpret: bool = False,
-    sort_pairs: str = "off",
-    colsplit: bool = False,
-) -> AlignmentResult:
-    """LEVEL-major alignment of B independent pairs from per-pair packs.
-
-    prep_pairs: dict level -> (i0 (B, NP) source intensity rows,
-    geom (B, GR, NP) source geometry packs, t_all (B, 3HP, W) target
-    stacks) for every ACTIVE level (prep_frame_analytic products, selected
-    per pair by the caller).  All B pairs' coarsest levels advance in
-    lockstep in one sublane-batched kernel (ops/fused_batch.py), then all
-    pairs' next level, and so on — the batched kernel amortizes the
-    per-iteration elementwise/solve/loop overhead across S pairs per
-    vector op, which the r4 ablation showed dominating every coarse
-    level.
-
-    sort_pairs — difficulty-sorted block assignment (VERDICT r4 item 4):
-    a grid block's while_loop runs until its SLOWEST pair freezes, so
-    under early-exit semantics a mixed block burns the fast pairs' time.
-    'on'/'auto' reorders pairs at each level after the coarsest by the
-    PREVIOUS level's iteration count, packing similar-cost pairs into
-    the same block.  Per-pair results are BIT-IDENTICAL either way — a
-    pair's trajectory through the kernel depends only on its own data
-    and init; block peers only decide how long the loop idles after it
-    froze (tests/test_fused_batch.py pins this).
-
-    DEFAULT IS OFF — refuted by measurement (BASELINE.md r5): on the
-    256-chunk VGA early-exit workload sorting costs ~9% (permute +
-    bookkeeping) and recovers nothing, both on a homogeneous chunk (no
-    spread to exploit — the 9% is the pure overhead bound) and on a
-    deliberately heterogeneous one (every 4th pair 30x the motion): the
-    shipped gradient-norm thresholds terminate nearly every pair in 1-2
-    iterations per level (measured spread p10=p90=1 at two of three
-    active levels), so there is no iteration spread for grouping to
-    exploit.  Kept as an opt-in for workloads with genuinely bimodal
-    convergence."""
-    from phovo_tpu.ops.fused_batch import _batch_tilings, fused_gn_level_batch
-
-    esm = config.gradient_at == "esm"
-    L = config.num_levels
-    B = next(iter(prep_pairs.values()))[0].shape[0]
-    if sort_pairs == "auto":
-        do_sort = any(
-            config.min_gradient_norms[lv] > 0
-            for lv in range(L)
-            if config.max_iterations[lv] > 0
-        )
-    else:
-        do_sort = sort_pairs == "on"
-    states = jnp.zeros((B, 6), jnp.float32)
-    diags = [None] * L
-    zeros = (
-        jnp.zeros((B,), jnp.int32), jnp.zeros((B,)), jnp.zeros((B,)),
-        jnp.zeros((B,)), jnp.zeros((B,)),
-    )
-    # cur_idx[slot] = original pair index occupying that slot; identity
-    # until the first sorted level. States/diags are carried in SLOT
-    # order and scattered back to original order at the end.
-    cur_idx = None
-    prev_its = None
-    for level in range(L - 1, -1, -1):
-        if config.max_iterations[level] <= 0:
-            diags[level] = zeros
-            continue
-        H, W = pyr.level_shape(shape, level)
-        i0, geom, t_all = prep_pairs[level]
-        cs = colsplit and _use_colsplit(H, W, esm)
-        tiling = _batch_tilings(H, W, esm, colsplit=cs)
-        spans_blocks = tiling is not None and B > tiling[0]
-        if do_sort and prev_its is not None and spans_blocks:
-            # reorder by the previous level's iteration counts (stable,
-            # so equal-difficulty pairs keep their relative order)
-            order = jnp.argsort(prev_its, stable=True)
-            cur_idx = order if cur_idx is None else cur_idx[order]
-            states = states[order]
-        if cur_idx is not None:
-            i0 = i0[cur_idx]
-            geom = geom[cur_idx]
-            t_all = t_all[cur_idx]
-        st, its, gnorm, cost, nvalid, masked = fused_gn_level_batch(
-            i0, geom, t_all,
-            intr.at_level(level), states,
-            config.min_depth, config.max_depth,
-            config.max_iterations[level],
-            config.min_gradient_norms[level],
-            config.lambda_steps[level],
-            H=H, W=W, sampling=config.sampling, interpret=interpret,
-            mix_mode=config.mix_mode, robust_loss=config.robust_loss,
-            robust_delta=config.robust_delta, esm=esm, colsplit=cs,
-        )
-        states = st
-        prev_its = its
-        # diagnostics are stored in ORIGINAL pair order at record time:
-        # cur_idx evolves across levels, so a single final inverse would
-        # mis-permute levels recorded under an earlier (or identity)
-        # ordering (review r5 finding; states stay in slot order for the
-        # next level's kernel and are inverted once at the end)
-        d = (its, gnorm, cost, nvalid, masked)
-        if cur_idx is not None:
-            inv_now = jnp.argsort(cur_idx)
-            d = tuple(x[inv_now] for x in d)
-        diags[level] = d
-    if cur_idx is not None:
-        states = states[jnp.argsort(cur_idx)]
-    return AlignmentResult(
-        state=states,
-        iterations=jnp.stack([d[0] for d in diags], axis=1),
-        gradient_norm=jnp.stack([d[1] for d in diags], axis=1),
-        cost=jnp.stack([d[2] for d in diags], axis=1),
-        num_valid=jnp.stack([d[3] for d in diags], axis=1),
-        band_masked=jnp.stack(
-            [jnp.asarray(d[4], jnp.float32) for d in diags], axis=1
-        ),
-    )
-
-
-def align_sequence_levelmajor(
-    intensities: jax.Array,  # (B+1, H, W) float32 0..1 (or uint8)
-    depths: jax.Array,  # (B+1, H, W)
-    intr: Intrinsics,
-    config: PhovoConfig,
-    interpret: bool = False,
-) -> AlignmentResult:
-    """align_sequence re-ordered LEVEL-major: all B pairs' coarsest levels
-    advance in lockstep in one sublane-batched kernel, then all pairs'
-    next level, and so on — instead of a serial scan of whole alignments.
-
-    Under the reference's zero-init semantics the pairs of a chunk are
-    independent, so nothing forces them through a serial chain
-    (align_pairs_levelmajor).  Per-pair results match the scan path at the
-    lane-reduction reassociation level (~1e-5 states;
-    tests/test_fused_batch.py)."""
-    intensities = device_unit_intensity(intensities).astype(jnp.float32)
-    shape = intensities.shape[1:]
-    prep = jax.vmap(
-        lambda i, d: prep_frame_analytic(i, d, intr, config, colsplit=True)
-    )(intensities, depths)
-    prep_pairs = {
-        level: (i0f[:-1, 0, :], geom[:-1], t_all[1:])
-        for level, (i0f, geom, t_all) in prep.items()
-    }
-    return align_pairs_levelmajor(
-        prep_pairs, shape, intr, config, interpret, colsplit=True
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("config", "use_fused", "warm_start"))
+@functools.partial(jax.jit, static_argnames=("config", "warm_start"))
 def align_sequence(
     intensities: jax.Array,  # (B, H, W) consecutive frames
     depths: jax.Array,  # (B, H, W)
     intr: Intrinsics,
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
 ) -> AlignmentResult:
     """Align all consecutive pairs of a buffered frame sequence in ONE device
-    program: lax.scan over pairs, each step a full multi-level alignment.
+    program — the shape of the reference VO app's frame loop
+    (PhotoconsistencyVisualOdometry.cpp:212-259) with one dispatch per
+    segment instead of one per pair. Returns batched AlignmentResult with
+    leading dim B-1 (pair k aligns frame k -> k+1).
 
-    This is the TPU-idiomatic shape of the reference VO app's frame loop
-    (PhotoconsistencyVisualOdometry.cpp:212-259): instead of one host
-    round-trip per pair (fixed dispatch latency dominates at ~0.7 ms/call on
-    a remote-attached chip), a whole video segment is processed per dispatch.
-    Returns batched AlignmentResult with leading dim B-1 (pair k aligns
-    frame k -> k+1). warm_start initializes each pair from the previous
-    relative state (the reference always starts from zero, …cpp:224).
-
-    When every active level takes the whole-level Pallas kernel, the
-    per-frame prep (pyramids, Scharr, packs) is batched OUT of the serial
-    chain (align_sequence_prepped) — identical kernels and results, one
-    prep per frame instead of two (each frame is both a pair's target and
-    the next pair's source).
-    """
-    if levelmajor_eligible(config, intensities.shape[1:], use_fused, warm_start):
-        return align_sequence_levelmajor(intensities, depths, intr, config)
-    if prepped_sequence_eligible(config, intensities.shape[1:], use_fused):
-        return align_sequence_prepped(
-            intensities, depths, intr, config, warm_start
-        )
-    return sequence_scan(
-        lambda si, sd, ti, td, init: align_analytic(
-            si, sd, ti, td, intr, init, config, use_fused
-        ),
-        intensities, depths, warm_start,
+    Zero-init chains solve all pairs as one batch; warm_start (each pair
+    initialized from the previous relative state) scans the pairs in order
+    (models/base.py align_chain)."""
+    return align_chain(
+        prep_frame_analytic, align_prepped, intensities, depths, intr,
+        config, warm_start, not warm_start,
     )
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("config", "use_fused", "warm_start", "depth_scale"),
+    jax.jit, static_argnames=("config", "warm_start", "depth_scale"),
 )
 def align_sequence_chunk(
     carry_intensity: jax.Array,  # (H, W) last frame of the previous chunk
@@ -634,7 +208,6 @@ def align_sequence_chunk(
     depths: jax.Array,  # (B, H, W) metric float32 or raw uint16 counts
     intr: Intrinsics,
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
     depth_scale: float | None = None,
 ) -> tuple[AlignmentResult, jax.Array, jax.Array]:
@@ -650,382 +223,13 @@ def align_sequence_chunk(
     I, D = chunk_device_prep(
         carry_intensity, carry_depth, intensities, depths, depth_scale
     )
-    results = align_sequence(I, D, intr, config, use_fused, warm_start)
+    results = align_sequence(I, D, intr, config, warm_start)
     return results, I[-1], D[-1]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("config", "use_fused", "warm_start", "depth_scale"),
-)
-def track_sequence_chunk(
-    kf_intensity: jax.Array,  # (H, W) the keyframe (source, fixed)
-    kf_depth: jax.Array,  # (H, W)
-    intensities: jax.Array,  # (B, H, W) frames to track (uint8 or float32)
-    depths: jax.Array,  # (B, H, W) metric float32 or raw uint16 counts
-    intr: Intrinsics,
-    init_state: jax.Array,  # (6,) warm start for the first frame
-    config: PhovoConfig,
-    use_fused: bool = True,
-    warm_start: bool = True,
-    depth_scale: float | None = None,
-) -> AlignmentResult:
-    """Track a chunk of B frames against ONE fixed keyframe in one device
-    program (the keyframe-VO analog of align_sequence_chunk).
-
-    The per-frame keyframe tracker (models/keyframe.py run) pays one
-    dispatch + one full-frame host->device transfer per frame; this scans
-    the whole chunk on device instead — per chunk the host moves only the
-    new frames in storage dtype. warm_start carries each frame's state into
-    the next frame's initialization (frames tracked against the same
-    keyframe move smoothly); the promotion decision stays on the host
-    (models/keyframe.py run_chunked), which re-dispatches the chunk tail
-    against a freshly promoted keyframe.
-    """
-    if depth_scale is not None and depths.dtype != jnp.float32:
-        depths = depths.astype(jnp.float32) * jnp.float32(depth_scale)
-    intensities = device_unit_intensity(intensities)
-    kf_i = device_unit_intensity(kf_intensity).astype(jnp.float32)
-    kf_d = kf_depth.astype(jnp.float32)
-
-    def step(carry, frame):
-        ti, td = frame
-        init = carry if warm_start else jnp.zeros(6, jnp.float32)
-        res = align_analytic(kf_i, kf_d, ti, td, intr, init, config, use_fused)
-        return res.state, res
-
-    _, results = jax.lax.scan(
-        step, jnp.asarray(init_state, jnp.float32), (intensities, depths)
-    )
-    return results
-
-
-def prep_frame_targets(
-    intensity: jax.Array,  # (H, W) float32 0..1
-    config: PhovoConfig,
-    colsplit: bool = False,
-) -> dict:
-    """Target-side per-frame products only: for every ACTIVE level the
-    (3*HP, W) channel stack (pack_target_colmajor).  The keyframe-tracking
-    path consumes frames exclusively as TARGETS (the keyframe is the one
-    source, and SetTargetFrame ignores depth — …Analytic.h:480-491), so
-    tracked frames need neither a geometry pack nor a depth transfer."""
-    L = config.num_levels
-    blur = tuple(config.blur_filter_sizes)
-    int_p = pyr.build_pyramid(intensity, L, blur, blur_type=config.blur_type)
-    gx, gy = pyr.build_gradient_pyramid(int_p, tuple(config.gradient_scales))
-    esm = config.gradient_at == "esm"
-    out = {}
-    for level in range(L):
-        if config.max_iterations[level] <= 0:
-            continue
-        if colsplit and _use_colsplit(*int_p[level].shape, esm):
-            from phovo_tpu.ops.fused_batch import pack_target_colsplit
-
-            out[level] = pack_target_colsplit(
-                int_p[level], gx[level], gy[level]
-            )
-            continue
-        out[level] = fused_ops.pack_target_colmajor(
-            int_p[level], gx[level], gy[level]
-        )
-    return out
-
-
-@functools.partial(jax.jit, static_argnames=("config", "colsplit"))
-def prep_keyframe(
-    intensity: jax.Array,  # (H, W) uint8 or float32 0..1
-    depth: jax.Array,  # (H, W) float32 meters
-    intr: Intrinsics,
-    config: PhovoConfig,
-    colsplit: bool = False,
-) -> dict:
-    """Device-resident source packs for ONE keyframe (computed once at
-    promotion, shared by every tracking chunk until the next promotion):
-    dict level -> (i0 (1, NP), geom (GR, NP))."""
-    i = device_unit_intensity(intensity).astype(jnp.float32)
-    full = prep_frame_analytic(
-        i, depth.astype(jnp.float32), intr, config, colsplit=colsplit
-    )
-    return {level: (i0f, geom) for level, (i0f, geom, _) in full.items()}
-
-
-def track_levelmajor_eligible(
-    config: PhovoConfig, shape, use_fused: bool
-) -> bool:
-    """True when keyframe-chunk tracking can run LEVEL-major: every active
-    level has a shared-source batch tiling (ops/fused_batch.py
-    _batch_tilings(shared_src=True) — strictly less VMEM than the pairwise
-    tiling, so this passes wherever levelmajor_eligible does).  Unlike the
-    frame-chain gate there is no warm-start exclusion: the serial
-    warm-start chain is replaced by EXPLICIT per-pair inits (constant-
-    velocity extrapolation, models/keyframe.py run_chunked), which keeps
-    the pairs independent."""
-    from phovo_tpu.models.base import levelmajor_enabled
-
-    if not levelmajor_enabled():
-        return False
-    if config.robust_loss == "tdist":
-        return False
-    if not prepped_sequence_eligible(config, shape, use_fused):
-        return False
-    from phovo_tpu.ops.fused_batch import _batch_tilings
-
-    esm = config.gradient_at == "esm"
-    for level in range(config.num_levels):
-        if config.max_iterations[level] <= 0:
-            continue
-        h, w = pyr.level_shape(tuple(shape), level)
-        if _batch_tilings(h, w, esm, shared_src=True) is None:
-            return False
-    return True
-
-
-def track_pairs_levelmajor(
-    kf_prep: dict,  # level -> (i0 (1, NP), geom (GR, NP)) — prep_keyframe
-    tgt_targets: dict,  # level -> (B, 3*HP, W) — batched prep_frame_targets
-    shape: tuple[int, int],
-    intr: Intrinsics,
-    config: PhovoConfig,
-    init_states: jax.Array,  # (B, 6) explicit per-pair inits
-    interpret: bool = False,
-    colsplit: bool = False,
-) -> AlignmentResult:
-    """LEVEL-major tracking of B frames against ONE shared keyframe.
-
-    The keyframe's source packs are read once per grid block
-    (shared_source kernel mode) instead of being replicated B times; all B
-    frames' coarsest levels advance in lockstep, then the next level, and
-    so on.  Unlike align_pairs_levelmajor the per-pair init states are
-    explicit — the caller supplies per-pair inits (production: every
-    frame anchored at the LAST SOLVED state; a constant-velocity
-    extrapolation chain was refuted by measurement, see
-    models/keyframe.py run_chunked) in place of the serial scan's
-    warm-start chain (VERDICT r4 item 1: all frames of a chunk track
-    against the SAME keyframe, so the chain was an initialization aid,
-    not a semantic requirement)."""
-    from phovo_tpu.ops.fused_batch import fused_gn_level_batch
-
-    esm = config.gradient_at == "esm"
-    L = config.num_levels
-    B = next(iter(tgt_targets.values())).shape[0]
-    states = jnp.asarray(init_states, jnp.float32).reshape(B, 6)
-    diags = [None] * L
-    zeros = (
-        jnp.zeros((B,), jnp.int32), jnp.zeros((B,)), jnp.zeros((B,)),
-        jnp.zeros((B,)), jnp.zeros((B,)),
-    )
-    for level in range(L - 1, -1, -1):
-        if config.max_iterations[level] <= 0:
-            diags[level] = zeros
-            continue
-        H, W = pyr.level_shape(shape, level)
-        i0, geom = kf_prep[level]
-        st, its, gnorm, cost, nvalid, masked = fused_gn_level_batch(
-            i0, geom, tgt_targets[level],
-            intr.at_level(level), states,
-            config.min_depth, config.max_depth,
-            config.max_iterations[level],
-            config.min_gradient_norms[level],
-            config.lambda_steps[level],
-            H=H, W=W, sampling=config.sampling, interpret=interpret,
-            mix_mode=config.mix_mode, robust_loss=config.robust_loss,
-            robust_delta=config.robust_delta, esm=esm,
-            shared_source=True,
-            colsplit=colsplit and _use_colsplit(H, W, esm),
-        )
-        states = st
-        diags[level] = (its, gnorm, cost, nvalid, masked)
-    return AlignmentResult(
-        state=states,
-        iterations=jnp.stack([d[0] for d in diags], axis=1),
-        gradient_norm=jnp.stack([d[1] for d in diags], axis=1),
-        cost=jnp.stack([d[2] for d in diags], axis=1),
-        num_valid=jnp.stack([d[3] for d in diags], axis=1),
-        band_masked=jnp.stack(
-            [jnp.asarray(d[4], jnp.float32) for d in diags], axis=1
-        ),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("config", "interpret"))
-def track_chunk_levelmajor(
-    kf_prep: dict,  # prep_keyframe products (traced pytree)
-    intensities: jax.Array,  # (B, H, W) frames to track (uint8 or float32)
-    intr: Intrinsics,
-    init_states: jax.Array,  # (B, 6) per-pair inits
-    config: PhovoConfig,
-    interpret: bool = False,
-) -> AlignmentResult:
-    """Track a chunk of B frames against ONE keyframe, LEVEL-major, in one
-    device program (the fast-path replacement for the serial
-    track_sequence_chunk scan — VERDICT r4 item 1).  Per chunk the host
-    uploads only the frames' intensities in storage dtype: tracked frames
-    are targets only, so no depth transfer and no geometry pack
-    (prep_frame_targets)."""
-    intensities = device_unit_intensity(intensities).astype(jnp.float32)
-    shape = intensities.shape[1:]
-    tgt = jax.vmap(
-        lambda i: prep_frame_targets(i, config, colsplit=True)
-    )(intensities)
-    return track_pairs_levelmajor(
-        kf_prep, tgt, shape, intr, config, init_states, interpret,
-        colsplit=True,
-    )
-
-
-def multi_kernel_eligible(config: PhovoConfig, shape, S: int) -> bool:
-    """True when every ACTIVE pyramid level of `config` at frame `shape`
-    fits the multi-stream kernel (S streams' level data VMEM-resident,
-    height within the Pallas cap, supported objective)."""
-    if config.robust_loss == "tdist":
-        return False
-    H, W = shape
-    for level in range(config.num_levels):
-        if config.max_iterations[level] <= 0:
-            continue
-        h, w = pyr.level_shape((H, W), level)
-        if h > fused_ops.FUSED_MAX_H:
-            return False
-        esm = config.gradient_at == "esm"
-        if fused_ops.multi_stream_vmem_bytes(S, h, w, esm) > (
-            fused_ops.MULTI_VMEM_BUDGET
-        ):
-            return False
-    return True
-
-
-@functools.partial(jax.jit, static_argnames=("config", "interpret"))
-def align_batch_fused(
-    source_intensity: jax.Array,  # (S, H, W)
-    source_depth: jax.Array,
-    target_intensity: jax.Array,
-    target_depth: jax.Array,  # unused (reference SetTargetFrame ignores depth)
-    intr: Intrinsics,
-    init_states: jax.Array,  # (S, 6)
-    config: PhovoConfig,
-    interpret: bool = False,
-) -> AlignmentResult:
-    """S independent alignments advanced by ONE batched kernel per level —
-    the serving/batch fast path attacking the serial-iteration ceiling.
-
-    Per level the dispatch prefers the sublane-batched kernel
-    (ops/fused_batch.py: S streams stacked on the sublane axis, all
-    elementwise/solve work S streams per vector op) whenever a VMEM tiling
-    exists, falling back to the multi-stream kernel (ops/fused.py
-    fused_gn_level_multi: launch-overhead amortization only) for level
-    shapes too large to stack.
-
-    Callers must gate on multi_kernel_eligible(config, (H, W), S); use
-    align_batch (vmap) otherwise. Pyramid/gradient builds are batched XLA.
-    Returns a batched AlignmentResult (leading dim S).
-    """
-    del target_depth
-    source_intensity = device_unit_intensity(source_intensity)
-    target_intensity = device_unit_intensity(target_intensity)
-    S = source_intensity.shape[0]
-    L = config.num_levels
-    blur = tuple(config.blur_filter_sizes)
-    int0 = pyr.build_pyramid(source_intensity, L, blur, blur_type=config.blur_type)
-    dep0 = pyr.build_pyramid(source_depth, L, None)
-    int1 = pyr.build_pyramid(target_intensity, L, blur, blur_type=config.blur_type)
-    gx1, gy1 = pyr.build_gradient_pyramid(int1, tuple(config.gradient_scales))
-    esm = config.gradient_at == "esm"
-    if esm:
-        gx0, gy0 = pyr.build_gradient_pyramid(int0, tuple(config.gradient_scales))
-
-    states = jnp.asarray(init_states, jnp.float32).reshape(S, 6)
-    diags = [None] * L
-    zeros = (
-        jnp.zeros((S,), jnp.int32), jnp.zeros((S,)), jnp.zeros((S,)),
-        jnp.zeros((S,)), jnp.zeros((S,)),
-    )
-    from phovo_tpu.ops.fused_batch import _batch_tilings, fused_gn_level_batch
-
-    for level in range(L - 1, -1, -1):
-        if config.max_iterations[level] <= 0:
-            diags[level] = zeros
-            continue
-        intr_l = intr.at_level(level)
-        h, w = int0[level].shape[1:]
-        # prefer the sublane-batched kernel (ops/fused_batch.py: S streams
-        # per vector op) whenever a VMEM tiling exists; the multi-stream
-        # kernel (launch-overhead amortization only) is the fallback for
-        # level shapes too large to stack
-        if _batch_tilings(h, w, esm) is not None and config.robust_loss != "tdist":
-            NP, _ = fused_ops._pick_tile_pixels(h, w)
-            i0f = jax.vmap(
-                lambda a: fused_ops._pad_flat(a.reshape(1, h * w), NP)[0]
-            )(int0[level])  # (S, NP)
-            if esm:
-                geom = jax.vmap(
-                    lambda d, gx, gy: fused_ops.pack_geometry(
-                        d, intr_l, config.min_depth, config.max_depth, NP,
-                        (gx, gy),
-                    )
-                )(dep0[level], gx0[level], gy0[level])
-            else:
-                geom = jax.vmap(
-                    lambda d: fused_ops.pack_geometry(
-                        d, intr_l, config.min_depth, config.max_depth, NP
-                    )
-                )(dep0[level])  # (S, GR, NP)
-            t_all = jax.vmap(fused_ops.pack_target_colmajor)(
-                int1[level], gx1[level], gy1[level]
-            )  # (S, 3HP, w)
-            st, its, gnorm, cost, nvalid, masked = fused_gn_level_batch(
-                i0f, geom, t_all, intr_l, states,
-                config.min_depth, config.max_depth,
-                config.max_iterations[level],
-                config.min_gradient_norms[level],
-                config.lambda_steps[level],
-                H=h, W=w, sampling=config.sampling, interpret=interpret,
-                mix_mode=config.mix_mode, robust_loss=config.robust_loss,
-                robust_delta=config.robust_delta, esm=esm,
-            )
-        else:
-            tgt = jnp.concatenate(
-                [int1[level], gx1[level], gy1[level]], axis=-2
-            )  # (S, 3h, w)
-            st, its, gnorm, cost, nvalid, masked = fused_ops.fused_gn_level_multi(
-                int0[level], dep0[level], tgt, intr_l, states,
-                config.min_depth, config.max_depth,
-                config.max_iterations[level],
-                config.min_gradient_norms[level],
-                config.lambda_steps[level],
-                config.sampling, interpret=interpret,
-                mix_mode=config.mix_mode,
-                robust_loss=config.robust_loss,
-                robust_delta=config.robust_delta,
-                source_grads=(gx0[level], gy0[level]) if esm else None,
-            )
-        states = st
-        diags[level] = (its, gnorm, cost, nvalid, masked)
-
-    return AlignmentResult(
-        state=states,
-        iterations=jnp.stack([d[0] for d in diags], axis=1),
-        gradient_norm=jnp.stack([d[1] for d in diags], axis=1),
-        cost=jnp.stack([d[2] for d in diags], axis=1),
-        num_valid=jnp.stack([d[3] for d in diags], axis=1),
-        band_masked=jnp.stack([d[4] for d in diags], axis=1),
-    )
 
 
 class PhotoconsistencyOdometryAnalytic(PhotoconsistencyOdometryBase):
     """Object API over `align_analytic` (reference class:
     CPhotoconsistencyOdometryAnalytic, …Analytic.h:57)."""
 
-    def __init__(self, config: PhovoConfig | None = None, use_fused: bool = True):
-        super().__init__(config)
-        self.use_fused = use_fused
-
     def align(self, si, sd, ti, td, intr, init_state) -> AlignmentResult:
-        return align_analytic(
-            si, sd, ti, td, intr, init_state, self.config, self.use_fused
-        )
-
-    def align_full_band(self, si, sd, ti, td, intr, init_state):
-        return align_analytic(
-            si, sd, ti, td, intr, init_state, self.config, use_fused=False
-        )
+        return align_analytic(si, sd, ti, td, intr, init_state, self.config)

@@ -6,10 +6,10 @@ forward-mode autodiff through `SampleWithDerivative`, which bilinear-samples
 the precomputed Scharr gradient images at the warped coordinates and chains
 them (third_party/sample.h:104-123, third_party/jet_extras.h:73-110). That
 is EXACTLY the analytic linearization with bilinear sampling and
-gradient_at='warped' — so in production this backend drives the same fused
-Pallas linearizer as the analytic backend, under our Ceres-schema
-trust-region LM (solvers/trust_region.py). No Jet plumbing, no N x 6
-Jacobian, compile time measured in seconds instead of minutes.
+gradient_at='warped' — so in production this backend drives the same
+packed-gather linearizer as the analytic backend (ops/fused.py), under our
+Ceres-schema trust-region LM (solvers/trust_region.py). No Jet plumbing,
+no N x 6 Jacobian, compile time measured in seconds instead of minutes.
 
 A pure jax.jacfwd path (`jacobian_mode='jacfwd'`: exact derivative of the
 bilinear interpolant itself) is kept for validation — the JAX-native
@@ -24,17 +24,18 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from phovo_tpu.models.analytic import prep_frame_analytic
 from phovo_tpu.models.base import (
     AlignmentResult,
     PhotoconsistencyOdometryBase,
+    align_chain,
     chunk_device_prep,
     device_unit_intensity,
-    sequence_scan,
+    stack_levels,
 )
-from phovo_tpu.ops import fused as fused_ops
-from phovo_tpu.ops import pyramid as pyr
 from phovo_tpu.ops.camera import Intrinsics
-from phovo_tpu.ops.residuals import residual_vector
+from phovo_tpu.ops.fused import packed_normal_equations
+from phovo_tpu.ops.residuals import residual_valid_count, residual_vector
 from phovo_tpu.solvers.trust_region import (
     residual_to_linearizer,
     trust_region_level,
@@ -42,21 +43,7 @@ from phovo_tpu.solvers.trust_region import (
 from phovo_tpu.utils.config import PhovoConfig
 
 
-@functools.partial(
-    jax.jit, static_argnames=("config", "jacobian_mode", "use_fused")
-)
-def align_autodiff(
-    source_intensity: jax.Array,
-    source_depth: jax.Array,
-    target_intensity: jax.Array,
-    target_depth: jax.Array,  # unused, like the reference Ceres backend
-    intr: Intrinsics,
-    init_state: jax.Array,
-    config: PhovoConfig,
-    jacobian_mode: str = "linearizer",
-    use_fused: bool = True,
-) -> AlignmentResult:
-    del target_depth
+def _check_config(config: PhovoConfig) -> None:
     if config.robust_loss == "tdist":
         raise ValueError(
             "robust_loss='tdist' needs the Gauss-Newton solver (its "
@@ -64,43 +51,44 @@ def align_autodiff(
             "iterations, breaking the accept/reject comparison); use the "
             "'analytic' backend, or huber/cauchy/tukey here"
         )
-    # u8 inputs convert on device (reference SetSourceFrame's 1/255):
-    # host-side conversion would quadruple the host->device transfer
-    source_intensity = device_unit_intensity(source_intensity)
-    target_intensity = device_unit_intensity(target_intensity)
+
+
+def align_prepped_tr(
+    src: dict,
+    tgt: dict,
+    intr: Intrinsics,
+    init_state: jax.Array,
+    config: PhovoConfig,
+    jacobian_mode: str = "linearizer",
+) -> AlignmentResult:
+    """Coarse-to-fine trust-region LM of one pair from the source's and the
+    target's prep_frame_analytic products (the backend always samples
+    bilinearly and reads the target gradients at the warped position —
+    the Ceres functor's convention — whatever config.sampling and
+    config.gradient_at say)."""
+    _check_config(config)
     L = config.num_levels
-    blur = tuple(config.blur_filter_sizes)
-    int0 = pyr.build_pyramid(source_intensity, L, blur, blur_type=config.blur_type)
-    dep0 = pyr.build_pyramid(source_depth, L, None)
-    int1 = pyr.build_pyramid(target_intensity, L, blur, blur_type=config.blur_type)
-    gx1, gy1 = pyr.build_gradient_pyramid(int1, tuple(config.gradient_scales))
-
-    fused_ok = (
-        use_fused
-        and jacobian_mode == "linearizer"
-        and fused_ops._HAS_PALLAS
-        and jax.default_backend() == "tpu"
-    )
-
     state = jnp.asarray(init_state, jnp.float32)
     diags = [None] * L
     for level in range(L - 1, -1, -1):
         intr_l = intr.at_level(level)
-        H = int1[level].shape[0]
-
+        if config.max_iterations[level] <= 0:
+            zero = jnp.float32(0.0)
+            diags[level] = (state, 0, zero, zero, zero)
+            continue
+        i0, d0, _ = src[level]
+        p1 = tgt[level][2]
         if jacobian_mode == "jacfwd":
 
-            def r_fn(s, _lvl=level, _intr=intr_l):
+            def r_fn(s, _i0=i0, _d0=d0, _p1=p1, _intr=intr_l):
                 return residual_vector(
-                    s, int0[_lvl], dep0[_lvl], int1[_lvl], _intr,
+                    s, _i0, _d0, _p1[..., 0], _intr,
                     min_depth=config.min_depth, max_depth=config.max_depth,
                 )
 
-            from phovo_tpu.ops.residuals import residual_valid_count
-
-            def nv_fn(s, _lvl=level, _intr=intr_l):
+            def nv_fn(s, _d0=d0, _p1=p1, _intr=intr_l):
                 return residual_valid_count(
-                    s, dep0[_lvl], int1[_lvl], _intr,
+                    s, _d0, _p1[..., 0], _intr,
                     min_depth=config.min_depth, max_depth=config.max_depth,
                 )
 
@@ -110,264 +98,53 @@ def align_autodiff(
                 robust_delta=config.robust_delta,
                 num_valid_fn=nv_fn,
             )
-        elif fused_ok and H <= fused_ops.FUSED_MAX_H and config.max_iterations[level] > 0:
-            # whole trust-region level (all LM iterations, radius logic and
-            # solves) in one kernel call — one pallas launch per LEVEL like
-            # the analytic backend's fused_gn_level
-            from phovo_tpu.solvers.trust_region import TRLevelResult
-
-            tgt = fused_ops.pack_target_colmajor(int1[level], gx1[level], gy1[level])
-            st, its, cost, gnorm, radius, nvalid, masked = fused_ops.fused_tr_level(
-                int0[level], dep0[level], tgt, intr_l, state,
-                config.min_depth, config.max_depth,
-                config.trust_region_options(level),
-                sampling="bilinear",
-                mix_mode=config.mix_mode,
-                robust_loss=config.robust_loss,
-                robust_delta=config.robust_delta,
-            )
-            state = st
-            diags[level] = TRLevelResult(
-                st, its, cost, gnorm, radius, nvalid, masked
-            )
-            continue
         else:
-            tgt = fused_ops.pack_target(int1[level], gx1[level], gy1[level])
 
-            def linearize(s, _lvl=level, _tgt=tgt, _intr=intr_l):
-                return fused_ops.packed_normal_equations(
-                    int0[_lvl], dep0[_lvl], _tgt, s, _intr,
+            def linearize(s, _i0=i0, _d0=d0, _p1=p1, _intr=intr_l):
+                return packed_normal_equations(
+                    _i0, _d0, _p1, s, _intr,
                     config.min_depth, config.max_depth, sampling="bilinear",
                     robust_loss=config.robust_loss,
                     robust_delta=config.robust_delta,
                 )
 
-        res = trust_region_level(linearize, state, config.trust_region_options(level))
+        res = trust_region_level(
+            linearize, state, config.trust_region_options(level)
+        )
         state = res.state
-        diags[level] = res
-
-    return AlignmentResult(
-        state=state,
-        iterations=jnp.stack([d.iterations for d in diags]),
-        gradient_norm=jnp.stack([d.gradient_norm for d in diags]),
-        cost=jnp.stack([d.cost for d in diags]),
-        num_valid=jnp.stack([d.num_valid for d in diags]),
-        band_masked=jnp.stack(
-            [jnp.asarray(d.band_masked, jnp.float32) for d in diags]
-        ),
-    )
-
-
-def tr_levelmajor_eligible(
-    config: PhovoConfig, shape, jacobian_mode: str, warm_start: bool
-) -> bool:
-    """Gating for the trust-region level-major path (analytic gating +
-    linearizer jacobian mode — the jacfwd mode exists to exercise the
-    Ceres residual-functor schema and stays on the scan path)."""
-    from phovo_tpu.models.base import levelmajor_enabled
-
-    if not levelmajor_enabled():
-        return False
-    if warm_start or jacobian_mode != "linearizer":
-        return False
-    if not (
-        fused_ops._HAS_PALLAS and jax.default_backend() == "tpu"
-    ):
-        return False
-    from phovo_tpu.ops.fused_batch import _batch_tilings
-
-    for level in range(config.num_levels):
-        if config.max_iterations[level] <= 0:
-            continue
-        h, w = pyr.level_shape(tuple(shape), level)
-        if h > fused_ops.FUSED_MAX_H or _batch_tilings(
-            h, w, tr=True
-        ) is None:
-            return False
-    return True
-
-
-def align_sequence_autodiff_levelmajor(
-    intensities: jax.Array,  # (B+1, H, W)
-    depths: jax.Array,
-    intr: Intrinsics,
-    config: PhovoConfig,
-    interpret: bool = False,
-) -> AlignmentResult:
-    """Trust-region sequence re-ordered LEVEL-major through the
-    sublane-batched TR kernel (ops/fused_batch.py fused_tr_level_batch):
-    all B pairs' LM levels advance in lockstep with per-pair radii and
-    termination flags.
-
-    Divergence from the per-pair scan: ZERO-iteration levels report zero
-    diagnostics here (the scan path runs their initial linearization and
-    reports its cost/gradient); states are identical either way — a
-    0-iteration level never moves the state."""
-    import dataclasses
-
-    from phovo_tpu.models.analytic import prep_frame_analytic
-    from phovo_tpu.ops.fused_batch import fused_tr_level_batch
-
-    intensities = device_unit_intensity(intensities).astype(jnp.float32)
-    shape = intensities.shape[1:]
-    B = intensities.shape[0] - 1
-    # The TR backend ignores gradient_at (the reference Ceres functor always
-    # samples the target gradients at the warped position, sample.h:104-123;
-    # align_autodiff likewise never reads it) — but prep_frame_analytic
-    # packs a 6-row ESM geometry when config.gradient_at == 'esm', which the
-    # 4-row batched TR kernel cannot consume. Force the 'warped' pack so
-    # ceres-backend sequences with esm configs route here safely.
-    prep_cfg = (
-        dataclasses.replace(config, gradient_at="warped")
-        if config.gradient_at == "esm" else config
-    )
-    prep = jax.vmap(
-        lambda i, d: prep_frame_analytic(i, d, intr, prep_cfg, colsplit=True)
-    )(intensities, depths)
-
-    L = config.num_levels
-    states = jnp.zeros((B, 6), jnp.float32)
-    diags = [None] * L
-    zeros = (
-        jnp.zeros((B,), jnp.int32), jnp.zeros((B,)), jnp.zeros((B,)),
-        jnp.zeros((B,)), jnp.zeros((B,)),
-    )
-    for level in range(L - 1, -1, -1):
-        if config.max_iterations[level] <= 0:
-            diags[level] = zeros
-            continue
-        H, W = pyr.level_shape(shape, level)
-        from phovo_tpu.models.analytic import _use_colsplit
-
-        i0f, geom, t_all = prep[level]
-        st, its, cost, gnorm, radius, nvalid, masked = fused_tr_level_batch(
-            i0f[:-1, 0, :],
-            geom[:-1],
-            t_all[1:],
-            intr.at_level(level), states,
-            config.min_depth, config.max_depth,
-            config.trust_region_options(level),
-            H=H, W=W, sampling="bilinear", interpret=interpret,
-            mix_mode=config.mix_mode, robust_loss=config.robust_loss,
-            robust_delta=config.robust_delta,
-            colsplit=_use_colsplit(H, W, False),
+        diags[level] = (
+            res.state, res.iterations, res.gradient_norm, res.cost,
+            res.num_valid,
         )
-        states = st
-        diags[level] = (its, gnorm, cost, nvalid, masked)
-    return AlignmentResult(
-        state=states,
-        iterations=jnp.stack([d[0] for d in diags], axis=1),
-        gradient_norm=jnp.stack([d[1] for d in diags], axis=1),
-        cost=jnp.stack([d[2] for d in diags], axis=1),
-        num_valid=jnp.stack([d[3] for d in diags], axis=1),
-        band_masked=jnp.stack(
-            [jnp.asarray(d[4], jnp.float32) for d in diags], axis=1
-        ),
-    )
+    return stack_levels(diags)
 
 
-def tr_track_levelmajor_eligible(
-    config: PhovoConfig, shape, jacobian_mode: str
-) -> bool:
-    """Keyframe-chunk tracking eligibility for the trust-region backend:
-    every active level has a SHARED-SOURCE batch tiling (strictly less
-    VMEM than the pairwise tiling). No warm-start exclusion — the chunk
-    tracker supplies explicit anchored inits (models/keyframe.py
-    run_chunked)."""
-    from phovo_tpu.models.base import levelmajor_enabled
-    from phovo_tpu.ops import pyramid as pyr
-
-    if not levelmajor_enabled():
-        return False
-    if jacobian_mode != "linearizer" or config.robust_loss == "tdist":
-        return False
-    if not (fused_ops._HAS_PALLAS and jax.default_backend() == "tpu"):
-        return False
-    from phovo_tpu.ops.fused_batch import _batch_tilings
-
-    for level in range(config.num_levels):
-        if config.max_iterations[level] <= 0:
-            continue
-        h, w = pyr.level_shape(tuple(shape), level)
-        if h > fused_ops.FUSED_MAX_H or _batch_tilings(
-            h, w, shared_src=True, tr=True
-        ) is None:
-            return False
-    return True
-
-
-@functools.partial(jax.jit, static_argnames=("config", "interpret"))
-def track_chunk_levelmajor_tr(
-    kf_prep: dict,  # level -> (i0 (1, NP), geom (4, NP)) — prep_keyframe
-    intensities: jax.Array,  # (B, H, W) frames to track (uint8 or float32)
+@functools.partial(jax.jit, static_argnames=("config", "jacobian_mode"))
+def align_autodiff(
+    source_intensity: jax.Array,
+    source_depth: jax.Array,
+    target_intensity: jax.Array,
+    target_depth: jax.Array,  # unused, like the reference Ceres backend
     intr: Intrinsics,
-    init_states: jax.Array,  # (B, 6) explicit per-pair inits
+    init_state: jax.Array,
     config: PhovoConfig,
-    interpret: bool = False,
+    jacobian_mode: str = "linearizer",
 ) -> AlignmentResult:
-    """Track a chunk of B frames against ONE keyframe with the TRUST-
-    REGION backend, LEVEL-major (the ceres-backend analog of
-    models/analytic.track_chunk_levelmajor — VERDICT r4 item 6: the most
-    accurate per-pair aligner can now drive the keyframe pipeline at
-    chunked speed). Shared-source batched TR kernel per level
-    (ops/fused_batch.fused_tr_level_batch); frames are targets only.
-
-    The keyframe prep must be 4-row (prep_keyframe with a non-esm
-    config; the TR backend always samples warped-target gradients)."""
-    import dataclasses as _dc
-
-    from phovo_tpu.models.analytic import prep_frame_targets
-    from phovo_tpu.ops import pyramid as pyr
-    from phovo_tpu.ops.fused_batch import fused_tr_level_batch
-
-    intensities = device_unit_intensity(intensities).astype(jnp.float32)
-    shape = intensities.shape[1:]
-    prep_cfg = (
-        _dc.replace(config, gradient_at="warped")
-        if config.gradient_at == "esm" else config
+    del target_depth
+    _check_config(config)
+    # u8 inputs convert on device (reference SetSourceFrame's 1/255):
+    # host-side conversion would quadruple the host->device transfer
+    src = prep_frame_analytic(
+        device_unit_intensity(source_intensity), source_depth, intr, config
     )
-    tgt = jax.vmap(
-        lambda i: prep_frame_targets(i, prep_cfg, colsplit=True)
-    )(intensities)
-    B = intensities.shape[0]
-    L = config.num_levels
-    states = jnp.asarray(init_states, jnp.float32).reshape(B, 6)
-    diags = [None] * L
-    zeros = (
-        jnp.zeros((B,), jnp.int32), jnp.zeros((B,)), jnp.zeros((B,)),
-        jnp.zeros((B,)), jnp.zeros((B,)),
+    tgt = prep_frame_analytic(
+        device_unit_intensity(target_intensity), None, intr, config
     )
-    for level in range(L - 1, -1, -1):
-        if config.max_iterations[level] <= 0:
-            diags[level] = zeros
-            continue
-        H, W = pyr.level_shape(shape, level)
-        from phovo_tpu.models.analytic import _use_colsplit
+    return align_prepped_tr(src, tgt, intr, init_state, config, jacobian_mode)
 
-        i0, geom = kf_prep[level]
-        st, its, cost, gnorm, radius, nvalid, masked = fused_tr_level_batch(
-            i0, geom, tgt[level],
-            intr.at_level(level), states,
-            config.min_depth, config.max_depth,
-            config.trust_region_options(level),
-            H=H, W=W, sampling="bilinear", interpret=interpret,
-            mix_mode=config.mix_mode, robust_loss=config.robust_loss,
-            robust_delta=config.robust_delta,
-            shared_source=True,
-            colsplit=_use_colsplit(H, W, False),
-        )
-        states = st
-        diags[level] = (its, gnorm, cost, nvalid, masked)
-    return AlignmentResult(
-        state=states,
-        iterations=jnp.stack([d[0] for d in diags], axis=1),
-        gradient_norm=jnp.stack([d[1] for d in diags], axis=1),
-        cost=jnp.stack([d[2] for d in diags], axis=1),
-        num_valid=jnp.stack([d[3] for d in diags], axis=1),
-        band_masked=jnp.stack(
-            [jnp.asarray(d[4], jnp.float32) for d in diags], axis=1
-        ),
-    )
+
+def _align_prepped_jacfwd(src, tgt, intr, init_state, config):
+    return align_prepped_tr(src, tgt, intr, init_state, config, "jacfwd")
 
 
 @functools.partial(
@@ -381,20 +158,16 @@ def align_sequence_autodiff(
     jacobian_mode: str = "linearizer",
     warm_start: bool = False,
 ) -> AlignmentResult:
-    """Buffered-segment trust-region alignment: lax.scan over consecutive
-    pairs (the 'ceres' backend's analog of analytic.align_sequence).
-    Zero-init sequences take the LEVEL-major sublane-batched TR path."""
-    if config.robust_loss != "tdist" and tr_levelmajor_eligible(
-        config, intensities.shape[1:], jacobian_mode, warm_start
-    ):
-        return align_sequence_autodiff_levelmajor(
-            intensities, depths, intr, config
-        )
-    return sequence_scan(
-        lambda si, sd, ti, td, init: align_autodiff(
-            si, sd, ti, td, intr, init, config, jacobian_mode
-        ),
-        intensities, depths, warm_start,
+    """Buffered-segment trust-region alignment (the 'ceres' backend's analog
+    of analytic.align_sequence): zero-init chains solve all pairs as one
+    batch, each pair with its own radius and termination flag."""
+    _check_config(config)
+    align_fn = (
+        _align_prepped_jacfwd if jacobian_mode == "jacfwd" else align_prepped_tr
+    )
+    return align_chain(
+        prep_frame_analytic, align_fn, intensities, depths, intr, config,
+        warm_start, not warm_start,
     )
 
 
@@ -438,10 +211,4 @@ class PhotoconsistencyOdometryAutodiff(PhotoconsistencyOdometryBase):
     def align(self, si, sd, ti, td, intr, init_state) -> AlignmentResult:
         return align_autodiff(
             si, sd, ti, td, intr, init_state, self.config, self.jacobian_mode
-        )
-
-    def align_full_band(self, si, sd, ti, td, intr, init_state):
-        return align_autodiff(
-            si, sd, ti, td, intr, init_state, self.config,
-            self.jacobian_mode, use_fused=False,
         )

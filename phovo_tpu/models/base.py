@@ -6,10 +6,10 @@ SetSourceFrame, SetTargetFrame, SetInitialStateVector, Optimize,
 GetOptimalStateVector, GetOptimalRigidTransformationMatrix) plus
 ReadConfigurationFile / SetMinDepth / SetMaxDepth from the concrete backends.
 
-TPU-first split: the object API below is a thin host-side wrapper holding
-frames; the actual work is one jitted functional `align` per
-(backend, config, image shape), cached, that runs pyramids + all pyramid
-levels + all solver iterations as a single XLA program. Backend selection is
+The object API below is a thin host-side wrapper holding frames; the
+actual work is one jitted functional `align` per (backend, config, image
+shape), cached, that runs pyramids + all pyramid levels + all solver
+iterations as a single XLA program. Backend selection is
 a runtime string, not a compile-time #define
 (cf. PhotoconsistencyVisualOdometry.cpp:34-44).
 """
@@ -40,61 +40,9 @@ class AlignmentResult(NamedTuple):
     gradient_norm: jax.Array  # (L,) final ||J^T r|| (GN) / inf-norm (LM)
     cost: jax.Array  # (L,) final cost per level
     num_valid: jax.Array  # (L,) valid-pixel count per level
-    # (L,) max pixels dropped per iteration by the fused kernel's banded
-    # sampling window (0 where the exact XLA path ran / the band was wide
-    # enough). A material fraction band_masked/num_valid at a level means
-    # the motion exceeded the band and that level under-observed it — the
-    # production paths gate on band_masked_fraction and re-run such pairs
-    # with use_fused=False (PhotoconsistencyOdometryBase.optimize,
-    # models/keyframe.py run_chunked, apps/phovo_vo.py _run_chunked).
-    band_masked: jax.Array | float = 0.0
 
     def transform(self) -> jax.Array:
         return se3.pose_matrix(self.state)
-
-
-# Default production gate: re-run a pair full-band when the banded window
-# dropped more than this fraction of its otherwise-valid pixels at any
-# pyramid level. The band only masks under fast in-plane rotation at fine
-# levels (ops/fused.py banded row window); 2% is far above the band-edge
-# rounding that normal motion produces (tests pin ~0 there) and far below
-# the ~30%+ masking a 0.4 rad/frame yaw produces.
-BAND_FALLBACK_DEFAULT = 0.02
-
-
-def levelmajor_enabled() -> bool:
-    """PHOVO_LEVELMAJOR kill-switch for the level-major sequence paths.
-
-    Read at TRACE time inside jitted sequence entry points whose jit cache
-    key is only (config, shapes, flags): a signature compiled while the
-    switch had one value keeps that routing until its executable is
-    dropped. To toggle mid-process (A/B measurements, debugging), set the
-    env var AND call jax.clear_caches() — see tests/test_tpu_device.py
-    _lm_vs_scan for the pattern. Setting it before first use (or before
-    process start) needs no cache flush."""
-    import os
-
-    return os.environ.get("PHOVO_LEVELMAJOR", "1") != "0"
-
-
-def band_masked_fraction(band_masked, num_valid) -> float:
-    """Max over levels of dropped/(dropped+kept) pixels for ONE alignment.
-
-    band_masked counts pixels the fused kernel's banded sampling window
-    dropped (max over the level's iterations); num_valid counts the pixels
-    kept at that level. Inputs are (L,) host or device arrays; returns a
-    Python float (blocks on device values)."""
-    bm = np.asarray(band_masked, np.float64).reshape(-1)
-    nv = np.asarray(num_valid, np.float64).reshape(-1)
-    return float(np.max(bm / np.maximum(bm + nv, 1.0)))
-
-
-def band_masked_fractions(band_masked, num_valid) -> np.ndarray:
-    """Batched band_masked_fraction: (B, L) diagnostics -> (B,) max-over-
-    levels masked fraction per alignment."""
-    bm = np.asarray(band_masked, np.float64)
-    nv = np.asarray(num_valid, np.float64)
-    return np.max(bm / np.maximum(bm + nv, 1.0), axis=-1)
 
 
 def as_float_intensity(img) -> np.ndarray:
@@ -131,26 +79,66 @@ def _as_float_depth(depth) -> np.ndarray:
     return np.asarray(depth, dtype=np.float32)
 
 
-def sequence_scan(align_one, intensities, depths, warm_start: bool):
-    """lax.scan over consecutive frame pairs of a buffered segment — the
-    TPU-idiomatic shape of the reference VO app's frame loop
-    (PhotoconsistencyVisualOdometry.cpp:212-259): one device program per
-    video segment instead of one dispatch per pair.
+def align_chain(
+    prep_frame, align_prepped, intensities, depths, intr, config,
+    warm_start: bool, batched: bool,
+):
+    """Align all consecutive pairs of a buffered frame segment.
 
-    align_one(si, sd, ti, td, init) -> AlignmentResult. Returns batched
-    results with leading dim B-1 (pair k aligns frame k -> k+1).
-    warm_start initializes each pair from the previous relative state
-    (the reference always starts from zero, …cpp:224)."""
-    pairs = (intensities[:-1], depths[:-1], intensities[1:], depths[1:])
+    prep_frame(intensity, depth, intr, config) builds one frame's per-level
+    products (pyramids, gradients, packs). It runs ONCE per frame, vmapped
+    over the segment: every interior frame is the target of pair k-1 and
+    the source of pair k.
+
+    align_prepped(src, tgt, intr, init_state, config) runs the coarse-to-fine
+    solve of one pair from two frames' products.
+
+    batched=True solves all pairs as one batch: jax.vmap of align_prepped,
+    so every pyramid level advances all pairs in lockstep. A vmapped
+    while_loop keeps each pair's own freeze and iteration count and runs
+    until the slowest pair stops. batched=False scans the pairs in order
+    (lax.scan), which a warm start needs: each pair starts from the
+    previous pair's state (the reference always starts from zero, …cpp:224).
+
+    Returns batched results with leading dim B-1 (pair k aligns frame k ->
+    k+1)."""
+    intensities = device_unit_intensity(intensities).astype(jnp.float32)
+    depths = jnp.asarray(depths, jnp.float32)
+    prep = jax.vmap(lambda i, d: prep_frame(i, d, intr, config))(
+        intensities, depths
+    )
+    src = jax.tree.map(lambda a: a[:-1], prep)
+    tgt = jax.tree.map(lambda a: a[1:], prep)
+    zero = jnp.zeros(6, jnp.float32)
+    if batched:
+        B = intensities.shape[0] - 1
+        return jax.vmap(
+            lambda s, t, x: align_prepped(s, t, intr, x, config)
+        )(src, tgt, jnp.zeros((B, 6), jnp.float32))
 
     def step(carry, pair):
-        si, sd, ti, td = pair
-        init = carry if warm_start else jnp.zeros(6, jnp.float32)
-        res = align_one(si, sd, ti, td, init)
+        s, t = pair
+        init = carry if warm_start else zero
+        res = align_prepped(s, t, intr, init, config)
         return res.state, res
 
-    _, results = jax.lax.scan(step, jnp.zeros(6, jnp.float32), pairs)
+    _, results = jax.lax.scan(step, zero, (src, tgt))
     return results
+
+
+def stack_levels(diags) -> AlignmentResult:
+    """AlignmentResult from per-level (state, iterations, gradient_norm,
+    cost, num_valid) diagnostics, level 0 first; the state is the finest
+    level's."""
+    return AlignmentResult(
+        state=diags[0][0],
+        iterations=jnp.stack([jnp.asarray(d[1], jnp.int32) for d in diags]),
+        gradient_norm=jnp.stack(
+            [jnp.asarray(d[2], jnp.float32) for d in diags]
+        ),
+        cost=jnp.stack([jnp.asarray(d[3], jnp.float32) for d in diags]),
+        num_valid=jnp.stack([jnp.asarray(d[4], jnp.float32) for d in diags]),
+    )
 
 
 def chunk_device_prep(
@@ -186,12 +174,6 @@ class PhotoconsistencyOdometryBase:
         self._target = None
         self._init_state = jnp.zeros(6, dtype=jnp.float32)
         self._result: AlignmentResult | None = None
-        # banded-window observability fallback (ops/fused.py band_masked):
-        # when the fused kernels drop more than this fraction of a level's
-        # valid pixels, optimize() re-runs the pair on the exact full-band
-        # path. 0 disables. band_fallbacks counts engagements.
-        self.band_fallback: float = BAND_FALLBACK_DEFAULT
-        self.band_fallbacks: int = 0
 
     # -- reference API surface ------------------------------------------------
     def read_configuration_file(self, path) -> None:
@@ -224,25 +206,11 @@ class PhotoconsistencyOdometryBase:
             raise RuntimeError("set_intrinsic_matrix must be called before optimize")
         if self._source is None or self._target is None:
             raise RuntimeError("source and target frames must be set before optimize")
-        args = (
+        self._result = self.align(
             self._source[0], self._source[1],
             self._target[0], self._target[1],
             self.intrinsics, self._init_state,
         )
-        result = self.align(*args)
-        if self.band_fallback > 0:
-            # one batched fetch (callers gather the result host-side right
-            # after optimize() anyway); gate + full-band retry on the host
-            result = AlignmentResult(*jax.device_get(tuple(result)))
-            if (
-                band_masked_fraction(result.band_masked, result.num_valid)
-                > self.band_fallback
-            ):
-                retry = self.align_full_band(*args)
-                if retry is not None:
-                    self.band_fallbacks += 1
-                    result = AlignmentResult(*jax.device_get(tuple(retry)))
-        self._result = result
         return self._result
 
     def get_optimal_state_vector(self) -> jax.Array:
@@ -268,13 +236,3 @@ class PhotoconsistencyOdometryBase:
         init_state: jax.Array,
     ) -> AlignmentResult:
         raise NotImplementedError
-
-    def align_full_band(
-        self, si, sd, ti, td, intr, init_state
-    ) -> AlignmentResult | None:
-        """Exact full-band re-alignment for the band_fallback gate (the
-        mechanism band_masked promises): backends whose fused kernels use
-        the banded sampling window override this to re-run on the
-        use_fused=False path. None = no fallback available (backend never
-        band-masks)."""
-        return None

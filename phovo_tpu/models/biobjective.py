@@ -6,9 +6,8 @@ residuals with separated rigid/projection Jacobians. The depth channel is
 weighted by gain = mean(I1)/mean(D1) (…BiObjective.h:299) recomputed per
 level from the (fixed) target pyramids.
 
-On TPU, coarse levels run as one whole-level fused Pallas kernel with the
-depth channel folded into a 16x16 Gram (ops/fused.py _fused_gn_bi_kernel);
-fine levels and CPU use the vectorized XLA pipeline.
+Each linearization is the vectorized XLA pipeline of
+ops/residuals.py biobjective_residual_jacobian.
 
 Deliberate divergences (see ops/residuals.py module docstring):
   - corrected 2N residual stacking: the reference interleaves intensity rows
@@ -29,29 +28,19 @@ import jax.numpy as jnp
 from phovo_tpu.models.base import (
     AlignmentResult,
     PhotoconsistencyOdometryBase,
+    align_chain,
     chunk_device_prep,
     device_unit_intensity,
-    sequence_scan,
+    stack_levels,
 )
-from phovo_tpu.ops import fused as fused_ops
 from phovo_tpu.ops import pyramid as pyr
 from phovo_tpu.ops.camera import Intrinsics
 from phovo_tpu.ops.residuals import biobjective_residual_jacobian, normal_equations
-from phovo_tpu.solvers.gauss_newton import GNLevelResult, gauss_newton_level
+from phovo_tpu.solvers.gauss_newton import gauss_newton_level
 from phovo_tpu.utils.config import PhovoConfig
 
 
-@functools.partial(jax.jit, static_argnames=("config", "use_fused"))
-def align_biobjective(
-    source_intensity: jax.Array,
-    source_depth: jax.Array,
-    target_intensity: jax.Array,
-    target_depth: jax.Array,
-    intr: Intrinsics,
-    init_state: jax.Array,
-    config: PhovoConfig,
-    use_fused: bool = True,
-) -> AlignmentResult:
+def _check_config(config: PhovoConfig) -> None:
     if config.gradient_at == "esm":
         raise ValueError(
             "gradient_at='esm' is photometric-only; the bi-objective "
@@ -63,68 +52,64 @@ def align_biobjective(
             "depth channels would need separate adaptive scales); use "
             "huber/cauchy/tukey for the bi-objective backend"
         )
-    # u8 inputs convert on device (reference SetSourceFrame's 1/255):
-    # host-side conversion would quadruple the host->device transfer
-    source_intensity = device_unit_intensity(source_intensity)
-    target_intensity = device_unit_intensity(target_intensity)
+
+
+def prep_frame_biobjective(
+    intensity: jax.Array,  # (H, W) float32 0..1
+    depth: jax.Array,  # (H, W) float32 meters
+    intr: Intrinsics,
+    config: PhovoConfig,
+) -> dict:
+    """Per-frame products for every ACTIVE level: (I, D, gx, gy, dgx, dgy,
+    gain) — the intensity and depth pyramids, their Scharr gradients and
+    the depth gain mean(I)/mean(D) (…BiObjective.h:299). The gain of a
+    pair comes from its TARGET frame. Depth gradients are taken on depth
+    normalized by 1/max_depth (…BiObjective.h:227-228)."""
+    del intr
     L = config.num_levels
     blur = tuple(config.blur_filter_sizes)
     scales = tuple(config.gradient_scales)
-    int0 = pyr.build_pyramid(source_intensity, L, blur, blur_type=config.blur_type)
-    dep0 = pyr.build_pyramid(source_depth, L, None)
-    int1 = pyr.build_pyramid(target_intensity, L, blur, blur_type=config.blur_type)
-    dep1 = pyr.build_pyramid(target_depth, L, None)
-    gx1, gy1 = pyr.build_gradient_pyramid(int1, scales)
-    # Depth gradients are taken on depth normalized by 1/max_depth
-    # (…BiObjective.h:227-228) — same magnitude convention kept here.
-    dep1_norm = [d * (1.0 / config.max_depth) for d in dep1]
-    dgx1, dgy1 = pyr.build_gradient_pyramid(dep1_norm, scales)
-
-    fused_ok = (
-        use_fused
-        and config.gradient_at == "warped"
-        and fused_ops._HAS_PALLAS
-        and jax.default_backend() == "tpu"
+    int_p = pyr.build_pyramid(intensity, L, blur, blur_type=config.blur_type)
+    dep_p = pyr.build_pyramid(depth, L, None)
+    gx, gy = pyr.build_gradient_pyramid(int_p, scales)
+    dgx, dgy = pyr.build_gradient_pyramid(
+        [d * (1.0 / config.max_depth) for d in dep_p], scales
     )
+    return {
+        level: (
+            int_p[level], dep_p[level], gx[level], gy[level], dgx[level],
+            dgy[level], jnp.mean(int_p[level]) / jnp.mean(dep_p[level]),
+        )
+        for level in range(L)
+        if config.max_iterations[level] > 0
+    }
 
+
+def align_prepped_biobjective(
+    src: dict,
+    tgt: dict,
+    intr: Intrinsics,
+    init_state: jax.Array,
+    config: PhovoConfig,
+) -> AlignmentResult:
+    """Coarse-to-fine bi-objective Gauss-Newton of one pair from the
+    source's and the target's prep_frame_biobjective products."""
+    _check_config(config)
+    L = config.num_levels
     state = jnp.asarray(init_state, jnp.float32)
     diags = [None] * L
     for level in range(L - 1, -1, -1):
-        intr_l = intr.at_level(level)
-        gain = jnp.mean(int1[level]) / jnp.mean(dep1[level])
-        H = int1[level].shape[0]
-
-        if (
-            fused_ok
-            and H <= fused_ops.FUSED_MAX_H
-            and config.max_iterations[level] > 0
-        ):
-            st, its, gnorm, cost, nvalid, masked = fused_ops.fused_gn_level(
-                int0[level], dep0[level],
-                fused_ops.pack_target_colmajor(
-                    int1[level], gx1[level], gy1[level]
-                ),
-                intr_l, state,
-                config.min_depth, config.max_depth,
-                config.max_iterations[level],
-                config.min_gradient_norms[level],
-                config.lambda_steps[level],
-                config.sampling,
-                depth_cols=(dep1[level], dgx1[level], dgy1[level]),
-                depth_gain=gain,
-                mix_mode=config.mix_mode,
-                robust_loss=config.robust_loss,
-                robust_delta=config.robust_delta,
-            )
-            state = st
-            diags[level] = GNLevelResult(st, its, gnorm, cost, nvalid, masked)
+        if config.max_iterations[level] <= 0:
+            zero = jnp.float32(0.0)
+            diags[level] = (state, 0, zero, zero, zero)
             continue
+        i0, d0 = src[level][:2]
+        i1, d1, gx1, gy1, dgx1, dgy1, gain = tgt[level]
 
-        def linearize(s, _lvl=level, _gain=gain, _intr=intr_l):
+        def linearize(s, _i0=i0, _d0=d0, _t=(i1, d1, gx1, gy1, dgx1, dgy1),
+                      _gain=gain, _intr=intr.at_level(level)):
             r, J, valid = biobjective_residual_jacobian(
-                int0[_lvl], dep0[_lvl], int1[_lvl], dep1[_lvl],
-                gx1[_lvl], gy1[_lvl], dgx1[_lvl], dgy1[_lvl],
-                s, _intr,
+                _i0, _d0, *_t, s, _intr,
                 min_depth=config.min_depth, max_depth=config.max_depth,
                 sampling=config.sampling, gradient_at=config.gradient_at,
                 depth_gain=_gain,
@@ -142,187 +127,52 @@ def align_biobjective(
         )
         state = res.state
         diags[level] = res
-
-    return AlignmentResult(
-        state=state,
-        iterations=jnp.stack([d.iterations for d in diags]),
-        gradient_norm=jnp.stack([d.gradient_norm for d in diags]),
-        cost=jnp.stack([d.cost for d in diags]),
-        num_valid=jnp.stack([d.num_valid for d in diags]),
-        band_masked=jnp.stack(
-            [jnp.asarray(d.band_masked, jnp.float32) for d in diags]
-        ),
-    )
+    return stack_levels(diags)
 
 
-def bi_levelmajor_eligible(
-    config: PhovoConfig, shape, use_fused: bool, warm_start: bool
-) -> bool:
-    """Gating for the bi-objective level-major path (the analytic gating
-    plus a bi-size VMEM tiling — six target channels per stream)."""
-    from phovo_tpu.models.base import levelmajor_enabled
-
-    if not levelmajor_enabled():
-        return False
-    if warm_start or config.gradient_at != "warped":
-        return False
-    if config.robust_loss == "tdist":
-        return False
-    if not (
-        use_fused
-        and fused_ops._HAS_PALLAS
-        and jax.default_backend() == "tpu"
-    ):
-        return False
-    from phovo_tpu.ops.fused_batch import _batch_tilings
-
-    for level in range(config.num_levels):
-        if config.max_iterations[level] <= 0:
-            continue
-        h, w = pyr.level_shape(tuple(shape), level)
-        if h > fused_ops.FUSED_MAX_H or _batch_tilings(h, w, bi=True) is None:
-            return False
-    return True
-
-
-def prep_frame_biobjective(
-    intensity: jax.Array,  # (H, W) float32 0..1
-    depth: jax.Array,
+@functools.partial(jax.jit, static_argnames=("config",))
+def align_biobjective(
+    source_intensity: jax.Array,
+    source_depth: jax.Array,
+    target_intensity: jax.Array,
+    target_depth: jax.Array,
     intr: Intrinsics,
+    init_state: jax.Array,
     config: PhovoConfig,
-) -> dict:
-    """Per-frame products for the bi-objective level-major path, per ACTIVE
-    level: (i0 (1, NP), geom (4, NP), t6 (6*HP, W) six-channel target
-    stack, gain (scalar mean(I1)/mean(D1), …BiObjective.h:299))."""
-    L = config.num_levels
-    blur = tuple(config.blur_filter_sizes)
-    scales = tuple(config.gradient_scales)
-    int_p = pyr.build_pyramid(intensity, L, blur, blur_type=config.blur_type)
-    dep_p = pyr.build_pyramid(depth, L, None)
-    gx, gy = pyr.build_gradient_pyramid(int_p, scales)
-    dep_norm = [d * (1.0 / config.max_depth) for d in dep_p]
-    dgx, dgy = pyr.build_gradient_pyramid(dep_norm, scales)
-    out = {}
-    for level in range(L):
-        if config.max_iterations[level] <= 0:
-            continue
-        H, W = int_p[level].shape
-        NP, _ = fused_ops._pick_tile_pixels(H, W)
-        i0f = fused_ops._pad_flat(int_p[level].reshape(1, H * W), NP)
-        geom = fused_ops.pack_geometry(
-            dep_p[level], intr.at_level(level), config.min_depth,
-            config.max_depth, NP,
-        )
-        t6 = jnp.concatenate(
-            [
-                fused_ops.pack_target_colmajor(
-                    int_p[level], gx[level], gy[level]
-                ),
-            ]
-            + [
-                fused_ops._pad_channel_rows(c)
-                for c in (dep_p[level], dgx[level], dgy[level])
-            ],
-            axis=0,
-        )  # (6*HP, W)
-        gain = jnp.mean(int_p[level]) / jnp.mean(dep_p[level])
-        out[level] = (i0f, geom, t6, gain)
-    return out
-
-
-def align_sequence_biobjective_levelmajor(
-    intensities: jax.Array,  # (B+1, H, W)
-    depths: jax.Array,
-    intr: Intrinsics,
-    config: PhovoConfig,
-    interpret: bool = False,
 ) -> AlignmentResult:
-    """Bi-objective sequence re-ordered LEVEL-major through the
-    sublane-batched kernel (ops/fused_batch.py bi mode): all B pairs'
-    coarsest levels advance in lockstep, per-pair depth gains riding in
-    the kernel's state rows."""
-    from phovo_tpu.ops.fused_batch import fused_gn_level_batch
-
-    intensities = device_unit_intensity(intensities).astype(jnp.float32)
-    shape = intensities.shape[1:]
-    B = intensities.shape[0] - 1
-    prep = jax.vmap(
-        lambda i, d: prep_frame_biobjective(i, d, intr, config)
-    )(intensities, depths)
-
-    L = config.num_levels
-    states = jnp.zeros((B, 6), jnp.float32)
-    diags = [None] * L
-    zeros = (
-        jnp.zeros((B,), jnp.int32), jnp.zeros((B,)), jnp.zeros((B,)),
-        jnp.zeros((B,)), jnp.zeros((B,)),
+    _check_config(config)
+    # u8 inputs convert on device (reference SetSourceFrame's 1/255):
+    # host-side conversion would quadruple the host->device transfer
+    src = prep_frame_biobjective(
+        device_unit_intensity(source_intensity), source_depth, intr, config
     )
-    for level in range(L - 1, -1, -1):
-        if config.max_iterations[level] <= 0:
-            diags[level] = zeros
-            continue
-        H, W = pyr.level_shape(shape, level)
-        i0f, geom, t6, gains = prep[level]
-        st, its, gnorm, cost, nvalid, masked = fused_gn_level_batch(
-            i0f[:-1, 0, :],
-            geom[:-1],
-            t6[1:],
-            intr.at_level(level), states,
-            config.min_depth, config.max_depth,
-            config.max_iterations[level],
-            config.min_gradient_norms[level],
-            config.lambda_steps[level],
-            H=H, W=W, sampling=config.sampling, interpret=interpret,
-            mix_mode=config.mix_mode, robust_loss=config.robust_loss,
-            robust_delta=config.robust_delta,
-            depth_gains=gains[1:],  # gain comes from the TARGET frame
-        )
-        states = st
-        diags[level] = (its, gnorm, cost, nvalid, masked)
-    return AlignmentResult(
-        state=states,
-        iterations=jnp.stack([d[0] for d in diags], axis=1),
-        gradient_norm=jnp.stack([d[1] for d in diags], axis=1),
-        cost=jnp.stack([d[2] for d in diags], axis=1),
-        num_valid=jnp.stack([d[3] for d in diags], axis=1),
-        band_masked=jnp.stack(
-            [jnp.asarray(d[4], jnp.float32) for d in diags], axis=1
-        ),
+    tgt = prep_frame_biobjective(
+        device_unit_intensity(target_intensity), target_depth, intr, config
     )
+    return align_prepped_biobjective(src, tgt, intr, init_state, config)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("config", "use_fused", "warm_start")
-)
+@functools.partial(jax.jit, static_argnames=("config", "warm_start"))
 def align_sequence_biobjective(
     intensities: jax.Array,  # (B, H, W) consecutive frames
     depths: jax.Array,
     intr: Intrinsics,
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
 ) -> AlignmentResult:
-    """Buffered-segment bi-objective alignment: lax.scan over consecutive
-    pairs (the intensity+depth backend's analog of analytic.align_sequence).
-    Unlike the photometric backends this one consumes the target depth.
-    Zero-init sequences take the LEVEL-major sublane-batched path."""
-    if bi_levelmajor_eligible(
-        config, intensities.shape[1:], use_fused, warm_start
-    ):
-        return align_sequence_biobjective_levelmajor(
-            intensities, depths, intr, config
-        )
-    return sequence_scan(
-        lambda si, sd, ti, td, init: align_biobjective(
-            si, sd, ti, td, intr, init, config, use_fused
-        ),
-        intensities, depths, warm_start,
+    """Buffered-segment bi-objective alignment (the intensity+depth
+    backend's analog of analytic.align_sequence). Unlike the photometric
+    backends this one consumes the target depth. Zero-init chains solve
+    all pairs as one batch."""
+    _check_config(config)
+    return align_chain(
+        prep_frame_biobjective, align_prepped_biobjective, intensities,
+        depths, intr, config, warm_start, not warm_start,
     )
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("config", "use_fused", "warm_start", "depth_scale"),
+    jax.jit, static_argnames=("config", "warm_start", "depth_scale"),
 )
 def align_sequence_chunk_biobjective(
     carry_intensity: jax.Array,
@@ -331,7 +181,6 @@ def align_sequence_chunk_biobjective(
     depths: jax.Array,
     intr: Intrinsics,
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
     depth_scale: float | None = None,
 ) -> tuple[AlignmentResult, jax.Array, jax.Array]:
@@ -341,9 +190,7 @@ def align_sequence_chunk_biobjective(
     I, D = chunk_device_prep(
         carry_intensity, carry_depth, intensities, depths, depth_scale
     )
-    results = align_sequence_biobjective(
-        I, D, intr, config, use_fused, warm_start
-    )
+    results = align_sequence_biobjective(I, D, intr, config, warm_start)
     return results, I[-1], D[-1]
 
 
@@ -351,16 +198,5 @@ class PhotoconsistencyOdometryBiObjective(PhotoconsistencyOdometryBase):
     """Object API over `align_biobjective` (reference class:
     CPhotoconsistencyOdometryBiObjective, …BiObjective.h:57)."""
 
-    def __init__(self, config: PhovoConfig | None = None, use_fused: bool = True):
-        super().__init__(config)
-        self.use_fused = use_fused
-
     def align(self, si, sd, ti, td, intr, init_state) -> AlignmentResult:
-        return align_biobjective(
-            si, sd, ti, td, intr, init_state, self.config, self.use_fused
-        )
-
-    def align_full_band(self, si, sd, ti, td, intr, init_state):
-        return align_biobjective(
-            si, sd, ti, td, intr, init_state, self.config, use_fused=False
-        )
+        return align_biobjective(si, sd, ti, td, intr, init_state, self.config)

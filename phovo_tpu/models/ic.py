@@ -1,11 +1,9 @@
-"""Inverse-compositional Gauss-Newton backend (TPU-native extension).
+"""Inverse-compositional Gauss-Newton backend.
 
 A fourth aligner beyond the reference's three (ops/ic.py for the algorithm):
 per pyramid level the Jacobian and its Cholesky factor come from the SOURCE
-frame once, so each GN iteration is one single-channel sampling pass —
-measured ~2x the analytic backend's throughput at identical iteration
-schedules, with matching pose estimates on synthetic ground truth
-(tests/test_ic.py).
+frame once, so each GN iteration is one single-channel sampling pass, with
+matching pose estimates on synthetic ground truth (tests/test_ic.py).
 
 Note the gradient convention: IC chains with the SOURCE image gradient, so
 `gradient_scales` should approximate the true derivative (OpenCV Scharr is
@@ -23,9 +21,11 @@ import jax.numpy as jnp
 from phovo_tpu.models.base import (
     AlignmentResult,
     PhotoconsistencyOdometryBase,
+    align_chain,
+    chunk_device_prep,
     device_unit_intensity,
+    stack_levels,
 )
-from phovo_tpu.ops import fused as fused_ops
 from phovo_tpu.ops import ic as ic_ops
 from phovo_tpu.ops import pyramid as pyr
 from phovo_tpu.ops import se3
@@ -33,18 +33,7 @@ from phovo_tpu.ops.camera import Intrinsics
 from phovo_tpu.utils.config import PhovoConfig
 
 
-@functools.partial(jax.jit, static_argnames=("config", "use_fused"))
-def align_ic(
-    source_intensity: jax.Array,
-    source_depth: jax.Array,
-    target_intensity: jax.Array,
-    target_depth: jax.Array,  # unused (parity with the other backends)
-    intr: Intrinsics,
-    init_state: jax.Array,
-    config: PhovoConfig,
-    use_fused: bool = True,
-) -> AlignmentResult:
-    del target_depth
+def _check_config(config: PhovoConfig) -> None:
     if config.robust_loss != "none":
         # IC's speed comes from the precomputed source-frame Jacobian and its
         # frozen Cholesky factor; IRLS reweighting changes J^T W J every
@@ -57,92 +46,6 @@ def align_ic(
             "the source frame); use backend 'analytic', 'biobjective' or "
             "'ceres', or set robust_loss: none"
         )
-    source_intensity = device_unit_intensity(source_intensity)
-    target_intensity = device_unit_intensity(target_intensity)
-    L = config.num_levels
-    blur = tuple(config.blur_filter_sizes)
-    int0 = pyr.build_pyramid(source_intensity, L, blur, blur_type=config.blur_type)
-    dep0 = pyr.build_pyramid(source_depth, L, None)
-    int1 = pyr.build_pyramid(target_intensity, L, blur, blur_type=config.blur_type)
-    # SOURCE gradients (the defining difference from the forward backends)
-    gx0, gy0 = pyr.build_gradient_pyramid(int0, tuple(config.gradient_scales))
-
-    fused_ok = (
-        use_fused and ic_ops._HAS_PALLAS and jax.default_backend() == "tpu"
-    )
-
-    T = se3.pose_matrix(jnp.asarray(init_state, jnp.float32))
-    diags = [None] * L
-    for level in range(L - 1, -1, -1):
-        if config.max_iterations[level] <= 0:
-            diags[level] = (
-                jnp.int32(0), jnp.float32(0), jnp.float32(0), jnp.float32(0),
-                jnp.float32(0),
-            )
-            continue
-        intr_l = intr.at_level(level)
-        H = int0[level].shape[0]
-        fused_level = fused_ok and H <= fused_ops.FUSED_MAX_H
-        if fused_level:
-            # one-pass fused precompute (J8 rows + in-kernel Cholesky) — the
-            # XLA version materializes the (H, W, 2, 6) pixel Jacobian and
-            # costs ~1.8x the whole IC solve
-            J8, chol = ic_ops.ic_precompute_pallas(
-                int0[level], dep0[level], gx0[level], gy0[level], intr_l,
-                config.min_depth, config.max_depth,
-            )
-            runner = ic_ops.ic_gn_level
-        else:
-            J8, chol = ic_ops.ic_precompute(
-                int0[level], dep0[level], gx0[level], gy0[level], intr_l,
-                config.min_depth, config.max_depth,
-            )
-            runner = ic_ops.ic_gn_level_xla
-        kw = {"mix_mode": config.mix_mode} if fused_level else {}
-        T, its, gnorm, cost, nvalid, masked = runner(
-            T, dep0[level], J8, chol, int1[level], intr_l,
-            config.max_iterations[level],
-            config.min_gradient_norms[level],
-            config.lambda_steps[level],
-            config.sampling,
-            **kw,
-        )
-        diags[level] = (its, gnorm, cost, nvalid, masked)
-
-    state = se3.matrix_to_state(T)
-    return AlignmentResult(
-        state=state.astype(jnp.float32),
-        iterations=jnp.stack([jnp.asarray(d[0], jnp.int32) for d in diags]),
-        gradient_norm=jnp.stack([jnp.asarray(d[1], jnp.float32) for d in diags]),
-        cost=jnp.stack([jnp.asarray(d[2], jnp.float32) for d in diags]),
-        num_valid=jnp.stack([jnp.asarray(d[3], jnp.float32) for d in diags]),
-        band_masked=jnp.stack([jnp.asarray(d[4], jnp.float32) for d in diags]),
-    )
-
-
-def ic_levelmajor_eligible(
-    config: PhovoConfig, shape, use_fused: bool, warm_start: bool
-) -> bool:
-    """Gating for the IC level-major path: reference zero-init semantics,
-    Pallas on TPU, per-level VMEM-fitting IC batch tiling
-    (ops/ic_batch.py)."""
-    from phovo_tpu.models.base import levelmajor_enabled
-
-    if not levelmajor_enabled():
-        return False
-    if warm_start or not (
-        use_fused and ic_ops._HAS_PALLAS and jax.default_backend() == "tpu"
-    ):
-        return False
-    from phovo_tpu.ops.ic_batch import _ic_batch_tilings
-
-    for level in range(config.num_levels):
-        if config.max_iterations[level] <= 0:
-            continue
-        h, w = pyr.level_shape(tuple(shape), level)
-        if h > fused_ops.FUSED_MAX_H or _ic_batch_tilings(h, w) is None:
-            return False
-    return True
 
 
 def prep_frame_ic(
@@ -151,131 +54,104 @@ def prep_frame_ic(
     intr: Intrinsics,
     config: PhovoConfig,
 ) -> dict:
-    """Per-frame products for the IC level-major path, per ACTIVE level:
-    (geom (3, NP), J8 (8, NP), L (1, 36), t_pad (HP, W)).
+    """Per-frame products for every ACTIVE level: (I, D, J8, chol).
 
-    A frame is a pair's TARGET (needs only its padded intensity) and the
-    next pair's SOURCE (needs the precomputed Jacobian system); computing
-    both once per frame, batched, keeps the serial chain free of prep —
-    the IC analog of models/analytic.py prep_frame_analytic."""
+    A frame is a pair's TARGET (needs only its intensity) and the next
+    pair's SOURCE (needs the precomputed Jacobian system ic_precompute:
+    J8 (8, N) and the Cholesky factor of J0^T J0); a chain computes both
+    once per frame."""
     L = config.num_levels
     blur = tuple(config.blur_filter_sizes)
     int_p = pyr.build_pyramid(intensity, L, blur, blur_type=config.blur_type)
     dep_p = pyr.build_pyramid(depth, L, None)
+    # SOURCE gradients (the defining difference from the forward backends)
     gx, gy = pyr.build_gradient_pyramid(int_p, tuple(config.gradient_scales))
     out = {}
     for level in range(L):
         if config.max_iterations[level] <= 0:
             continue
-        H, W = int_p[level].shape
-        NP, _ = fused_ops._pick_tile_pixels(H, W)
-        intr_l = intr.at_level(level)
-        J8, Lrow = ic_ops.ic_precompute_pallas(
-            int_p[level], dep_p[level], gx[level], gy[level], intr_l,
-            config.min_depth, config.max_depth,
+        J8, chol = ic_ops.ic_precompute(
+            int_p[level], dep_p[level], gx[level], gy[level],
+            intr.at_level(level), config.min_depth, config.max_depth,
         )
-        geom = fused_ops.pack_geometry(
-            dep_p[level], intr_l, 0.0, float("inf"), NP, include_valid=False
-        )
-        t_pad = ic_ops._pad_rows8(int_p[level])
-        out[level] = (geom, J8, Lrow, t_pad)
+        out[level] = (int_p[level], dep_p[level], J8, chol)
     return out
 
 
-def align_sequence_ic_levelmajor(
-    intensities: jax.Array,  # (B+1, H, W)
-    depths: jax.Array,
+def align_prepped_ic(
+    src: dict,
+    tgt: dict,
     intr: Intrinsics,
+    init_state: jax.Array,
     config: PhovoConfig,
-    interpret: bool = False,
 ) -> AlignmentResult:
-    """align_sequence_ic re-ordered LEVEL-major through the sublane-batched
-    IC kernel (ops/ic_batch.py): all B pairs' coarsest levels advance in
-    lockstep, poses carried in matrix form between levels, one Euler
-    extraction per pair at the end (se3.matrix_to_state, outside Pallas)."""
-    from phovo_tpu.ops.ic_batch import ic_gn_level_batch
-
-    intensities = device_unit_intensity(intensities).astype(jnp.float32)
-    shape = intensities.shape[1:]
-    B = intensities.shape[0] - 1
-    prep = jax.vmap(
-        lambda i, d: prep_frame_ic(i, d, intr, config)
-    )(intensities, depths)
-
+    """Coarse-to-fine IC Gauss-Newton of one pair from the source's and the
+    target's prep_frame_ic products; the pose is carried in matrix form
+    across levels and converted to the Euler state once at the end."""
+    _check_config(config)
     L = config.num_levels
-    Ts = jnp.tile(jnp.eye(4, dtype=jnp.float32), (B, 1, 1))
+    T = se3.pose_matrix(jnp.asarray(init_state, jnp.float32))
     diags = [None] * L
-    zeros = (
-        jnp.zeros((B,), jnp.int32), jnp.zeros((B,)), jnp.zeros((B,)),
-        jnp.zeros((B,)), jnp.zeros((B,)),
-    )
     for level in range(L - 1, -1, -1):
         if config.max_iterations[level] <= 0:
-            diags[level] = zeros
+            zero = jnp.float32(0.0)
+            diags[level] = (None, 0, zero, zero, zero)
             continue
-        H, W = pyr.level_shape(shape, level)
-        geom, J8, Lrow, t_pad = prep[level]
-        Ts, its, gnorm, cost, nvalid, masked = ic_gn_level_batch(
-            Ts,
-            geom[:-1],  # sources = frames 0..B-1
-            J8[:-1],
-            Lrow[:-1, 0, :],  # (B, 36)
-            t_pad[1:],  # targets = frames 1..B
-            intr.at_level(level),
+        _, d0, J8, chol = src[level]
+        T, its, gnorm, cost, nvalid = ic_ops.ic_gn_level(
+            T, d0, J8, chol, tgt[level][0], intr.at_level(level),
             config.max_iterations[level],
             config.min_gradient_norms[level],
             config.lambda_steps[level],
-            H=H, W=W, sampling=config.sampling, interpret=interpret,
-            mix_mode=config.mix_mode,
+            config.sampling,
         )
-        diags[level] = (its, gnorm, cost, nvalid, masked)
-    states = jax.vmap(se3.matrix_to_state)(Ts).astype(jnp.float32)
-    return AlignmentResult(
-        state=states,
-        iterations=jnp.stack([d[0] for d in diags], axis=1),
-        gradient_norm=jnp.stack([d[1] for d in diags], axis=1),
-        cost=jnp.stack([d[2] for d in diags], axis=1),
-        num_valid=jnp.stack([d[3] for d in diags], axis=1),
-        band_masked=jnp.stack(
-            [jnp.asarray(d[4], jnp.float32) for d in diags], axis=1
-        ),
+        diags[level] = (None, its, gnorm, cost, nvalid)
+    state = se3.matrix_to_state(T).astype(jnp.float32)
+    diags[0] = (state,) + tuple(diags[0][1:])
+    return stack_levels(diags)
+
+
+@functools.partial(jax.jit, static_argnames=("config",))
+def align_ic(
+    source_intensity: jax.Array,
+    source_depth: jax.Array,
+    target_intensity: jax.Array,
+    target_depth: jax.Array,  # unused (parity with the other backends)
+    intr: Intrinsics,
+    init_state: jax.Array,
+    config: PhovoConfig,
+) -> AlignmentResult:
+    _check_config(config)
+    src = prep_frame_ic(
+        device_unit_intensity(source_intensity), source_depth, intr, config
     )
+    # the target's depth is never read: its Jacobian products are dead code
+    tgt = prep_frame_ic(
+        device_unit_intensity(target_intensity), target_depth, intr, config
+    )
+    return align_prepped_ic(src, tgt, intr, init_state, config)
 
 
-@functools.partial(jax.jit, static_argnames=("config", "use_fused", "warm_start"))
+@functools.partial(jax.jit, static_argnames=("config", "warm_start"))
 def align_sequence_ic(
     intensities: jax.Array,
     depths: jax.Array,
     intr: Intrinsics,
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
 ) -> AlignmentResult:
-    """lax.scan over consecutive pairs with the IC aligner (see
-    models/analytic.py align_sequence for the pipeline rationale); under
-    zero-init semantics the LEVEL-major sublane-batched path applies
-    (align_sequence_ic_levelmajor)."""
-    if config.robust_loss == "none" and ic_levelmajor_eligible(
-        config, intensities.shape[1:], use_fused, warm_start
-    ):
-        return align_sequence_ic_levelmajor(intensities, depths, intr, config)
-    # (robust configs reach align_ic below, which raises the loud
-    # unsupported-robust_loss error for this backend)
-    pairs = (intensities[:-1], depths[:-1], intensities[1:], depths[1:])
-
-    def step(carry, pair):
-        si, sd, ti, td = pair
-        init = carry if warm_start else jnp.zeros(6, jnp.float32)
-        res = align_ic(si, sd, ti, td, intr, init, config, use_fused)
-        return res.state, res
-
-    _, results = jax.lax.scan(step, jnp.zeros(6, jnp.float32), pairs)
-    return results
+    """Buffered-segment IC alignment (see models/analytic.py align_sequence
+    for the pipeline rationale): zero-init chains solve all pairs as one
+    batch."""
+    _check_config(config)
+    return align_chain(
+        prep_frame_ic, align_prepped_ic, intensities, depths, intr, config,
+        warm_start, not warm_start,
+    )
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("config", "use_fused", "warm_start", "depth_scale"),
+    jax.jit, static_argnames=("config", "warm_start", "depth_scale"),
 )
 def align_sequence_chunk_ic(
     carry_intensity: jax.Array,
@@ -284,36 +160,21 @@ def align_sequence_chunk_ic(
     depths: jax.Array,
     intr: Intrinsics,
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
     depth_scale: float | None = None,
 ):
     """IC variant of models/analytic.py align_sequence_chunk: device-resident
     carry, storage-dtype transfers, on-device conversion."""
-    if depth_scale is not None and depths.dtype != jnp.float32:
-        depths = depths.astype(jnp.float32) * jnp.float32(depth_scale)
-    intensities = device_unit_intensity(intensities)
-    # the carry may arrive in storage dtype too (u8) — route it through
-    # the same unit conversion as the chunk frames
-    carry_f = device_unit_intensity(carry_intensity).astype(jnp.float32)
-    I = jnp.concatenate([carry_f[None], intensities])
-    D = jnp.concatenate([carry_depth.astype(jnp.float32)[None], depths])
-    results = align_sequence_ic(I, D, intr, config, use_fused, warm_start)
+    I, D = chunk_device_prep(
+        carry_intensity, carry_depth, intensities, depths, depth_scale
+    )
+    results = align_sequence_ic(I, D, intr, config, warm_start)
     return results, I[-1], D[-1]
 
 
 class PhotoconsistencyOdometryIC(PhotoconsistencyOdometryBase):
-    """Object API over `align_ic` (no reference counterpart; a TPU-native
-    fourth backend)."""
-
-    def __init__(self, config: PhovoConfig | None = None, use_fused: bool = True):
-        super().__init__(config)
-        self.use_fused = use_fused
+    """Object API over `align_ic` (no reference counterpart; a fourth
+    backend)."""
 
     def align(self, si, sd, ti, td, intr, init_state) -> AlignmentResult:
-        return align_ic(si, sd, ti, td, intr, init_state, self.config, self.use_fused)
-
-    def align_full_band(self, si, sd, ti, td, intr, init_state):
-        return align_ic(
-            si, sd, ti, td, intr, init_state, self.config, use_fused=False
-        )
+        return align_ic(si, sd, ti, td, intr, init_state, self.config)

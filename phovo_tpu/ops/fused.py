@@ -1,297 +1,38 @@
-"""Fused warp+residual+JtJ normal-equation linearization.
+"""Packed-gather normal-equation linearization.
 
 This module owns the hot loop of the whole framework — the per-iteration
 linearization the reference spends >90% of its time in
 (ComputeResidualsAndJacobians, CPhotoconsistencyOdometryAnalytic.h:191-367).
 
-Profiling on TPU v5e showed the XLA formulation is dominated by the three
-per-pixel image gathers (target intensity + 2 gradients at warped
-coordinates): ~4.5 ms each at VGA and ~100 us FIXED cost each at any size —
-fatal for the reference's coarse-level iteration schedules (75 tiny-level
-iterations per frame). Two re-designs fix this:
+The forward backends sample three target channels (intensity and the two
+Scharr gradients) at the warped coordinates of every source pixel. Stacking
+them into one (H, W, 4) array (`pack_target`) turns three scalar gathers
+into ONE 4-wide gather per sample point, so the per-index cost of the
+gather is paid once. XLA fuses that gather with the elementwise warp /
+Jacobian math and the JtJ reduction.
 
-1. `packed_gather` (XLA, any level size): stack (I1, gx, gy) into one
-   (H, W, 4) array so each iteration issues ONE 4-wide gather instead of
-   three scalar gathers (the per-index overhead amortizes over the row) —
-   measured 3-5x faster than separate gathers.
-
-2. `fused_normal_equations_pallas` (Pallas, every level with
-   H <= FUSED_MAX_H = 512 — i.e. all of VGA and below; see the banded
-   sampling caveat at that constant): the
-   ENTIRE linearization is one kernel and sampling becomes MXU matmuls, no
-   gather op at all:
-     - backproject/transform/project + the 2x6 Jacobian chain on the VPU;
-     - sampling via column-mix dot: a (tile_pixels, W) one/two-hot weight
-       matrix (built from broadcasted iota compares) matmuls the
-       column-major packed target (W, H*4), giving every pixel its sampled
-       column over all rows; a (tile_pixels, H) row-weight mask then reduces
-       to the sampled (I1, gx, gy) — bilinear and nearest differ only in the
-       weights;
-     - the reduction computes one 8x8 Gram matrix of [J0..J5, r, valid] per
-       tile on the MXU and accumulates it in VMEM scratch: JtJ is Gram[:6,:6],
-       Jtr is Gram[:6,6], cost Gram[6,6], count Gram[7,7]. The (N, 6)
-       Jacobian never exists in HBM.
-   Per-iteration cost at the preset's levels: ~10-40 us vs ~300+ us for the
-   XLA path.
-
-Both paths produce the same NormalEquations as ops/residuals.py
-(tests/test_fused.py checks exact agreement in interpret mode and on-device).
+`packed_normal_equations` produces the same NormalEquations as the
+reference residual path in ops/residuals.py (tests/test_fused.py checks the
+agreement for both sampling modes).
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 
 from phovo_tpu.ops.camera import Intrinsics
-from phovo_tpu.ops.robust import TDIST_MIN_SCALE
-from phovo_tpu.ops.robust import sqrt_weight as robust_sqrt_weight
 from phovo_tpu.ops.residuals import (
     NormalEquations,
     normal_equations,
-    photometric_residual_jacobian,
     warp_and_jacobian,
 )
-
-# Pallas is TPU-specific; import lazily so CPU-only use of the package works.
-try:  # pragma: no cover - import guard
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
-
-# Fused Pallas kernel is used when the level image is at most this tall —
-# i.e. always for VGA-and-smaller frames. Measured on v5e (per iteration,
-# nearest, bf16x2): 240x320 fused 250 us vs packed-gather XLA 2079 us;
-# 480x640 fused 686 us vs 8865 us (12.9x), with identical valid counts and
-# ~1e-5 relative JtJ agreement. The banded sampling window (32 target rows
-# per tile, chosen per-iteration from the tile's minimum warped row) is the
-# one behavioral caveat at fine levels: warp displacements spanning more
-# than ~30 rows within one tile mask those pixels for that iteration —
-# harmless under a coarse-to-fine schedule (coarse levels absorb large
-# motion first) and self-healing as alignment converges; use_fused=False
-# selects the exact XLA path if needed.
-FUSED_MAX_H = 512
-
-# Banded-window height (target rows contracted per tile). 32 is the
-# shipped default; PHOVO_FUSED_BAND=16 halves the row-mix mask/reduce work
-# at the cost of tighter motion margin (tile_rows*2 <= BAND still holds —
-# the tile picker shrinks NT accordingly) — experimental knob for
-# tools/kernel_ablate.py style measurements.
-import os as _os
-
-BAND_TARGET = int(_os.environ.get("PHOVO_FUSED_BAND", "32"))
-
-
-def mixed_col_dot(block, colw, mix_mode: str, bilinear: bool):
-    """dot(block (M, W) f32, colw (W, N) one/two-hot f32) -> (M, N) f32 at
-    the selected sampling precision — THE shared sampling primitive of both
-    Pallas kernels (this module's _linearize_gram and ops/ic.py).
-
-      f32    — exact, uses the package-global "highest" matmul precision
-               (6 bf16 MXU passes); reference/validation mode.
-      bf16x2 — hi/lo bfloat16 split of the block: 2 passes for nearest
-               (one-hot weights are bf16-exact), 3 for bilinear (the
-               fractional weights get their own lo-compensation term:
-               hi*cw_hi + hi*cw_lo + lo*cw_hi; the dropped lo*cw_lo term is
-               O(2^-16 * 2^-8)). Reproduces the f32 result to ~2^-17.
-      bf16   — single pass, ~4x faster dots, sample error ~4e-3.
-
-    The bf16 dots must pin precision=DEFAULT: the package sets
-    jax_default_matmul_precision="highest" globally (correct for the f32
-    mode), but "highest" lowers bf16 operands to a contract_precision<fp32>
-    tpu.matmul that Mosaic rejects ("Bad lhs type") — and bf16 inputs
-    already define the precision.
-
-    colw may arrive already in bfloat16 (nearest one-hot weights are
-    bf16-exact): building the mask directly in bf16 skips a full (W, NT)
-    cast per iteration, the kernel's largest single elementwise array.
-    """
-    dims = (((1,), (0,)), ((), ()))
-    if mix_mode == "f32":
-        return jax.lax.dot_general(
-            block, colw, dimension_numbers=dims,
-            preferred_element_type=jnp.float32,
-        )
-    if mix_mode == "bf16x2g":
-        # single-channel callers (ops/ic.py samples intensity only) have no
-        # gradient rows to downgrade: g-mode degenerates to bf16x2
-        mix_mode = "bf16x2"
-
-    def _bdot(a, b):
-        return jax.lax.dot_general(
-            a, b, dimension_numbers=dims,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.DEFAULT,
-        )
-
-    colw_hi = colw if colw.dtype == jnp.bfloat16 else colw.astype(jnp.bfloat16)
-    hi = block.astype(jnp.bfloat16)
-    if mix_mode == "bf16":
-        return _bdot(hi, colw_hi)
-    if mix_mode != "bf16x2":
-        raise ValueError(f"unknown mix_mode {mix_mode!r}")
-    lo = (block - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    out = _bdot(hi, colw_hi) + _bdot(lo, colw_hi)
-    if bilinear:
-        colw_lo = (colw - colw_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        out = out + _bdot(hi, colw_lo)
-    return out
-
-
-def _bf16_dot(a, b):
-    """bf16 MXU dot with f32 accumulation (precision pinned to DEFAULT —
-    see mixed_col_dot on why 'highest' must not leak into bf16 operands)."""
-    return jax.lax.dot_general(
-        a, b, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,
-    )
-
-
-def _split_sample(blocks, colw, bilinear, exact):
-    """mix_mode='bf16x2g' sampling: ONE stacked bf16 column-mix dot with
-    hi/lo-split rows for the channels in `exact` (intensity, and depth for
-    the bi-objective) and single-pass bf16 rows for the gradient channels.
-
-    Rationale: the column-mix dot's cost scales with MXU pass count, not
-    rows (the M axis is 128 deep). bf16x2 spends 2 full passes making ALL
-    channels exact to ~2^-17; but only the channels that enter RESIDUALS
-    need that (a bf16-sampled residual error ~4e-3 is the size of the u8
-    image quantization itself). The gradient channels only build the
-    Jacobian, where ~0.4% relative error perturbs the GN descent direction
-    without moving the fixed point (J^T r = 0 is driven by r): measured
-    pose agreement with f32 sampling is at the bf16x2 level while the
-    photometric stack [hi_I; lo_I; hi_gx; hi_gy] is exactly 4*BAND = 128
-    rows — one full-depth MXU pass instead of bf16x2's two.
-
-    blocks: CH x (BAND, W) f32 channel blocks. Returns CH x (BAND, NT) f32
-    sampled column values (caller applies the row mix)."""
-    colw_hi = colw if colw.dtype == jnp.bfloat16 else colw.astype(jnp.bfloat16)
-    parts, plan = [], []
-    for ch, b in enumerate(blocks):
-        hi = b.astype(jnp.bfloat16)
-        if ch in exact:
-            lo = (b - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-            plan.append((len(parts), len(parts) + 1))
-            parts.extend([hi, lo])
-        else:
-            plan.append((len(parts),))
-            parts.append(hi)
-    BAND = blocks[0].shape[0]
-    C = _bf16_dot(jnp.concatenate(parts, axis=0), colw_hi)
-    colw_lo = None
-    if bilinear and colw.dtype != jnp.bfloat16:
-        # two-hot fractional weights need their own lo term for the exact
-        # channels (same compensation as mixed_col_dot's bilinear bf16x2)
-        colw_lo = (colw - colw_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    out = []
-    for ch, idxs in enumerate(plan):
-        c = C[idxs[0] * BAND:(idxs[0] + 1) * BAND]
-        if len(idxs) == 2:
-            c = c + C[idxs[1] * BAND:(idxs[1] + 1) * BAND]
-            if colw_lo is not None:
-                c = c + _bf16_dot(parts[idxs[0]], colw_lo)
-        out.append(c)
-    return out
-
-
-def pack_geometry(source_depth, intr, min_depth, max_depth, NP,
-                  source_grads=None, include_valid=True):
-    """State-invariant per-pixel geometry, hoisted out of the GN iteration
-    loop: (4, NP) rows [px, py, pz, valid_depth] where (px, py, pz) is the
-    back-projected source point and valid_depth the (minD, maxD) range mask.
-
-    Inside the kernels these were recomputed every iteration (pixel-index
-    iota, integer div/mod by a non-power-of-two W, two f32 divides, two range
-    compares — all state-independent); computing them once per level in XLA
-    and keeping them VMEM-resident across the in-kernel while_loop removes
-    that work from every iteration. Padding pixels carry valid_depth 0.
-
-    source_grads=(gx0, gy0): the SOURCE intensity gradients for the ESM
-    Jacobian (gradient_at='esm') — also loop-invariant, appended as rows
-    4 and 5 (making the pack (6, NP)).
-
-    include_valid=False drops the valid_depth row (a (3, NP) pack) for
-    kernels that carry the depth mask elsewhere (the IC kernel's J8 row 7);
-    keeping a dead (1, NP) row VMEM-resident costs 1.2 MB at VGA."""
-    H, W = source_depth.shape
-    c = jnp.arange(W, dtype=jnp.float32)
-    r = jnp.arange(H, dtype=jnp.float32)
-    cc, rr = jnp.meshgrid(c, r)
-    px = (cc - intr.cx) * source_depth / intr.fx
-    py = (rr - intr.cy) * source_depth / intr.fy
-    rows = [px.reshape(-1), py.reshape(-1), source_depth.reshape(-1)]
-    if include_valid:
-        validf = (
-            (source_depth > min_depth) & (source_depth < max_depth)
-        ).astype(jnp.float32)
-        rows.append(validf.reshape(-1))
-    if source_grads is not None:
-        rows += [source_grads[0].reshape(-1), source_grads[1].reshape(-1)]
-    geom = jnp.stack(rows)  # (4 or 6, H*W)
-    N = H * W
-    if N != NP:
-        geom = jnp.pad(geom, ((0, 0), (0, NP - N)))
-    return geom
 
 
 def pack_target(target_intensity, target_grad_x, target_grad_y):
     """(H, W, 4) channel-packed target for single-gather sampling."""
     z = jnp.zeros_like(target_intensity)
     return jnp.stack([target_intensity, target_grad_x, target_grad_y, z], axis=-1)
-
-
-def _ceil8(n: int) -> int:
-    return -(-n // 8) * 8
-
-
-def _pad_channel_rows(ch2d):
-    """Zero-pad a (H, W) channel to (ceil8(H), W).
-
-    The kernels' banded row window dynamic-slices each channel at a
-    sublane-aligned (multiple-of-8) start; padding the per-channel height
-    to a multiple of 8 lets the aligned start reach high enough to cover
-    the image's last H % 8 rows (an unpadded stack capped the start at
-    floor8(H - BAND), silently dropping those rows for bottom tiles at
-    levels like 60x80 — and Mosaic rejects unaligned starts outright at
-    128-lane widths). The padding rows are never sampled: the row weights
-    only reference real rows (r <= H - 1)."""
-    H = ch2d.shape[0]
-    HP = _ceil8(H)
-    if HP == H:
-        return ch2d
-    return jnp.pad(ch2d, ((0, HP - H), (0, 0)))
-
-
-def pack_target_colmajor(target_intensity, target_grad_x, target_grad_y):
-    """Channel-major (3*ceil8(H), W) stack of the target channels for the
-    Pallas kernel: each channel zero-padded to a multiple-of-8 height
-    (see _pad_channel_rows), rows [0,HP) intensity, [HP,2HP) grad-x,
-    [2HP,3HP) grad-y.
-
-    Stacking lets the kernel sample all three channels with ONE column-mix
-    matmul of lhs height 3*BAND instead of three matmuls of height BAND —
-    the MXU's M axis is 128 deep, so an M=32 band uses 25% of the array and
-    an M=96 stack uses 75% for identical FLOPs (measured ~2x kernel-level
-    speedup at the fine pyramid levels)."""
-    return jnp.concatenate(
-        [
-            _pad_channel_rows(target_intensity),
-            _pad_channel_rows(target_grad_x),
-            _pad_channel_rows(target_grad_y),
-        ],
-        axis=0,
-    )
-
-
-# ---------------------------------------------------------------------------
-# XLA packed-gather path (any level size)
-# ---------------------------------------------------------------------------
 
 
 def _sample_packed(packed, col, row, sampling):
@@ -338,7 +79,8 @@ def packed_normal_equations(
     robust_loss: str = "none",
     robust_delta: float = 0.1,
 ) -> NormalEquations:
-    """XLA path with the single packed gather."""
+    """Normal equations of the photometric residual (target gradients
+    sampled at the warped position) with the single packed gather."""
     col, row, _, J_pix, valid_src = warp_and_jacobian(
         source_depth, state, intr, min_depth, max_depth
     )
@@ -351,1374 +93,3 @@ def packed_normal_equations(
     )
     J = jnp.where(valid[..., None], J, 0.0)
     return normal_equations(residual, J, valid, robust_loss, robust_delta)
-
-
-# ---------------------------------------------------------------------------
-# Pallas fused kernel (coarse levels)
-# ---------------------------------------------------------------------------
-
-
-def _pick_tile_pixels(H: int, W: int, budget_bytes: int = 8_000_000):
-    """Pixel tiling (N_padded, NT) for an H x W level.
-
-    The pixel count is padded up to a multiple of 128 (padding pixels carry
-    depth 0 and are masked invalid, contributing exact zeros to the Gram) so
-    that a 128-multiple tile size NT always exists; NT is then the largest
-    divisor of N_padded that (a) fits the VMEM footprint budget and (b) keeps
-    the tile's source-row span small enough for the 32-row banded sampling
-    window (tile_rows*2 <= 32) whenever banding is available (H > 48) —
-    banding halves-or-better the column-mix dot's MAC count, which is the
-    kernel's dominant cost, so a smaller banded tile beats a larger unbanded
-    one."""
-    N = H * W
-    # Footprint model: col mask (W, NT) + stacked row mask/mix (~9*BAND, NT),
-    # ~40 (8, NT)-padded per-pixel rows; Mosaic's allocator keeps roughly 2x
-    # this live (double buffering + temporaries), hence the conservative
-    # budget (validated against the 16 MB scoped-vmem limit).
-    per_px = (W + 9 * BAND_TARGET + 8 * 40) * 4
-    max_banded_nt = (BAND_TARGET // 2) * W  # tile_rows*2 <= BAND
-    base = -(-N // 128) * 128
-
-    best = None  # (score tuple, N_pad, NT)
-    for extra in range(0, 9):
-        N_pad = base + extra * 128
-        candidates = [t for t in range(128, N_pad + 1, 128) if N_pad % t == 0]
-        fitting = [t for t in candidates if t * per_px <= budget_bytes]
-        if not fitting:
-            continue
-        banded = [t for t in fitting if t <= max_banded_nt] if H > 48 else []
-        if banded:
-            # banding halves-or-better the mix dot's MACs; among banded
-            # tilings prefer the largest tile (fewest per-tile overheads),
-            # then the least padding waste
-            nt = max(banded)
-            score = (1, nt, -N_pad)
-        else:
-            # no banding available: padding only adds dead pixels, so take
-            # the least padding first (NT = N_pad single tile always fits)
-            nt = max(fitting)
-            score = (0, -N_pad, nt)
-        if best is None or score > best[0]:
-            best = (score, N_pad, nt)
-    if best is not None:
-        return best[1], best[2]
-    N_pad = base
-    candidates = [t for t in range(128, N_pad + 1, 128) if N_pad % t == 0]
-    if candidates:
-        return N_pad, min(candidates)
-    return N_pad, N_pad  # no legal tiling; single full block and hope it fits
-
-
-def _pad_flat(flat: jax.Array, n_pad: int) -> jax.Array:
-    """Pad a (1, N) pixel row to (1, n_pad) with zeros (depth-0 => invalid)."""
-    n = flat.shape[1]
-    if n == n_pad:
-        return flat
-    return jnp.pad(flat, ((0, 0), (0, n_pad - n)))
-
-
-def _linearize_gram(
-    x, y, z, yaw, pitch, roll, fx, fy, cx, cy,
-    i0_ref, geom_ref, t_all_ref,
-    bi=False, gain=None, *, H, W, NT, NP, bilinear, mix_mode="f32",
-    robust_loss="none", robust_delta=0.1, esm=False,
-    i0_row=0, geom_row=0, t_row=0, _ablate=None,
-):
-    """Full-level linearization as a function of the 6 state scalars:
-    internal fori_loop over NT-pixel sub-tiles, each computing geometry +
-    MXU one/two-hot sampling + the Gram of [J0..J5, r, valid]
-    (see _fused_kernel docstring for the layout rules).
-
-    geom_ref is the (4, NP) hoisted source geometry from pack_geometry
-    ([px, py, pz, valid_depth] — state-invariant, computed once per level).
-
-    t_all_ref is the channel-major target stack with per-channel stride
-    HP = ceil8(H): (3*HP, W) photometric [I1; gx; gy], or (6*HP, W)
-    bi-objective [I1; gx; gy; D1; dgx; dgy] (pack_target_colmajor /
-    _pad_channel_rows).
-
-    With bi=True and a depth gain, adds the bi-objective depth channel
-    (reference BiObjective backend,
-    CPhotoconsistencyOdometryBiObjective.h:241-452): residual
-    gain*(D1(warped) - tz) and Jacobian gain*(gradD . J_pix - J_rt_z),
-    emitted as a 16x16 Gram with the intensity block in rows/cols 0..7 and
-    the depth block in 8..15."""
-    HP = _ceil8(H)  # per-channel stack stride (see _pad_channel_rows)
-    cyw, syw = jnp.cos(yaw), jnp.sin(yaw)
-    cp, sp = jnp.cos(pitch), jnp.sin(pitch)
-    cr, sr = jnp.cos(roll), jnp.sin(roll)
-    # rotation rows (ZYX, matching ops/se3.pose_matrix)
-    R00, R01, R02 = cyw * cp, cyw * sp * sr - syw * cr, cyw * sp * cr + syw * sr
-    R10, R11, R12 = syw * cp, syw * sp * sr + cyw * cr, syw * sp * cr - cyw * sr
-    R20, R21, R22 = -sp, cp * sr, cp * cr
-    # dR/dyaw, dR/dpitch, dR/droll (ops/se3.rotation_jacobian_wrt_euler)
-    dY00, dY01, dY02 = -syw * cp, -syw * sp * sr - cyw * cr, -syw * sp * cr + cyw * sr
-    dY10, dY11, dY12 = cyw * cp, cyw * sp * sr - syw * cr, cyw * sp * cr + syw * sr
-    dP00, dP01, dP02 = -cyw * sp, cyw * cp * sr, cyw * cp * cr
-    dP10, dP11, dP12 = -syw * sp, syw * cp * sr, syw * cp * cr
-    dP20, dP21, dP22 = -cp, -sp * sr, -sp * cr
-    dR01y, dR02y = cyw * sp * cr + syw * sr, -cyw * sp * sr + syw * cr
-    dR11y, dR12y = syw * sp * cr - cyw * sr, -syw * sp * sr - cyw * cr
-    dR21y, dR22y = cp * cr, -cp * sr
-
-    n_tiles = NP // NT
-    # multi-stream layout (fused_gn_level_multi): stream s's rows live at
-    # static offsets i0_row/geom_row/t_row inside the stacked refs; the
-    # single-stream kernels pass 0 and the slices collapse to the originals
-    GR = 6 if esm else 4
-
-    def tile_gram(step):
-        if n_tiles == 1:
-            g4 = geom_ref[geom_row:geom_row + GR, :]
-            i0 = i0_ref[i0_row:i0_row + 1, :]
-        else:
-            off = pl.multiple_of(step * NT, 128)
-            g4 = geom_ref[geom_row:geom_row + GR, pl.ds(off, NT)]
-            i0 = i0_ref[i0_row:i0_row + 1, pl.ds(off, NT)]
-        px = g4[0:1]
-        py = g4[1:2]
-        pz = g4[2:3]
-
-        tx = R00 * px + R01 * py + R02 * pz + x
-        ty = R10 * px + R11 * py + R12 * pz + y
-        tz = R20 * px + R21 * py + R22 * pz + z
-        safe_z = jnp.where(jnp.abs(tz) > 1e-12, tz, 1e-12)
-        iz = 1.0 / safe_z
-        u = tx * fx * iz + cx
-        v = ty * fy * iz + cy
-        valid = (g4[3:4] > 0.5) & (tz > 0)
-
-        # rigid-jacobian rotation columns (dR @ p); dY2* are zero
-        ry0 = dY00 * px + dY01 * py + dY02 * pz
-        ry1 = dY10 * px + dY11 * py + dY12 * pz
-        rp0 = dP00 * px + dP01 * py + dP02 * pz
-        rp1 = dP10 * px + dP11 * py + dP12 * pz
-        rp2 = dP20 * px + dP21 * py + dP22 * pz
-        rr0 = dR01y * py + dR02y * pz
-        rr1 = dR11y * py + dR12y * pz
-        rr2 = dR21y * py + dR22y * pz
-
-        a0 = fx * iz
-        a2 = -fx * tx * iz * iz
-        b1 = fy * iz
-        b2 = -fy * ty * iz * iz
-        Ju0, Ju2 = a0, a2
-        Ju3 = a0 * ry0
-        Ju4 = a0 * rp0 + a2 * rp2
-        Ju5 = a0 * rr0 + a2 * rr2
-        Jv1, Jv2 = b1, b2
-        Jv3 = b1 * ry1
-        Jv4 = b1 * rp1 + b2 * rp2
-        Jv5 = b1 * rr1 + b2 * rr2
-        if _ablate == "const_jac":
-            # measurement hook: zero out the rotation-column/projection
-            # Jacobian chain (the ry/rp/rr and Ju/Jv builds above still
-            # execute; this kills only their downstream use — use with
-            # const_geom for the full geometry cost; results invalid)
-            Ju3 = Ju4 = Ju5 = a0
-            Jv3 = Jv4 = Jv5 = b1
-
-        # --- sampling weights (nearest: one-hot at round; bilinear: two-hot;
-        # mode chosen at kernel specialization) ---
-        if bilinear:
-            c0 = jnp.floor(u)  # (1, NT)
-            r0 = jnp.floor(v)
-            fc = u - c0
-            fr = v - r0
-            inb = (u >= 0) & (u < W) & (v >= 0) & (v < H)
-        else:
-            c0 = jnp.round(u)
-            r0 = jnp.round(v)
-            fc = jnp.zeros_like(u)
-            fr = jnp.zeros_like(v)
-            inb = (c0 >= 0) & (c0 <= W - 1) & (r0 >= 0) & (r0 <= H - 1)
-        valid = valid & inb
-
-        # masks compare in int32: the iota stays in its native dtype (the
-        # f32 cast was a full (W, NT) VPU pass every iteration — measurable,
-        # since the mask build is the kernel's largest elementwise cost) and
-        # only the (1, NT) index rows get converted
-        c_lo = jnp.clip(c0, 0, W - 1).astype(jnp.int32)
-        iota_w = jax.lax.broadcasted_iota(jnp.int32, (W, NT), 0)
-        if bilinear:
-            c_hi = jnp.clip(c0 + 1, 0, W - 1).astype(jnp.int32)
-            colw = jnp.where(iota_w == c_lo, 1.0 - fc, 0.0) + jnp.where(
-                iota_w == c_hi, fc, 0.0
-            )  # (W, NT)
-        else:
-            # nearest: exact one-hot — a single compare/select on the largest
-            # per-iteration array (the two-hot form with fc=0 costs 2.5x);
-            # built directly at the dot's operand precision so mixed_col_dot
-            # needs no (W, NT) cast (one-hot values are bf16-exact)
-            colw_dtype = jnp.float32 if mix_mode == "f32" else jnp.bfloat16
-            colw = (iota_w == c_lo).astype(colw_dtype)
-        if _ablate == "const_colw":
-            # measurement hook (tools/kernel_ablate.py): replace the mask
-            # BUILD with a state-independent constant of the same shape —
-            # isolates the (W, NT) compare/select cost (results invalid)
-            colw_dtype = jnp.float32 if mix_mode == "f32" else jnp.bfloat16
-            colw = (iota_w == 0).astype(colw_dtype)
-
-        r_lo = jnp.clip(r0, 0, H - 1).astype(jnp.int32)
-        r_hi = jnp.clip(r0 + 1, 0, H - 1).astype(jnp.int32) if bilinear else r_lo
-
-        # Banded row window: the row-mix only needs the target rows this tile's
-        # pixels actually land in. For a smooth warp a tile of consecutive
-        # source pixels maps into a narrow row band, so contracting over
-        # BAND << H rows cuts the mix's MXU and mask-build cost proportionally.
-        # Only applied when the tile itself spans few enough source rows that
-        # the 32-row band leaves ample motion margin (tile_rows <= BAND/2);
-        # pixels outside the dynamically-chosen band (possible only under
-        # extreme rotation at fine levels) are masked invalid for this
-        # iteration — the coarse levels (full-band) absorb such motion first.
-        tile_rows = max(1, NT // W)
-        BAND = (
-            BAND_TARGET if (H > 48 and tile_rows * 2 <= BAND_TARGET) else H
-        )
-        if BAND < H:
-            rmin = jnp.min(jnp.where(valid, r_lo, jnp.int32(H)))
-            # The slice start must be sublane-aligned (Mosaic requires a
-            # provable multiple of 8 at 128-lane widths), and the clamp is
-            # against the PADDED channel height HP = ceil8(H)
-            # (_pad_channel_rows): clamping against an unpadded H made the
-            # aligned start cap out at floor8(H - BAND), so for H % 8 != 0
-            # levels (e.g. 60x80) the last H % 8 rows were UNREACHABLE for
-            # bottom tiles and every frame silently dropped them
-            # (320 px/frame at 60x80; caught when the band_fallback gate
-            # fired on zero-motion pairs). With HP both bounds are
-            # multiples of 8 and the window always reaches row H - 1.
-            band = jnp.clip(rmin, 0, HP - BAND)
-            band = (band // 8) * 8
-            band = pl.multiple_of(band, 8)
-            in_band = (r_lo >= band) & (r_hi <= band + (BAND - 1))
-            # observability (VERDICT r1): count pixels the band drops THIS
-            # iteration — otherwise a fast-rotation pair silently loses its
-            # fine-level information. Reported per level as band_masked.
-            n_masked = jnp.sum(jnp.where(valid & ~in_band, 1.0, 0.0))
-            valid = valid & in_band
-            r_lo_loc = r_lo - band
-            r_hi_loc = r_hi - band
-        else:
-            band = 0
-            n_masked = jnp.float32(0.0)
-            r_lo_loc = r_lo
-            r_hi_loc = r_hi
-
-        iota_h = jax.lax.broadcasted_iota(jnp.int32, (BAND, NT), 0)
-        if bilinear:
-            roww = jnp.where(iota_h == r_lo_loc, 1.0 - fr, 0.0) + jnp.where(
-                iota_h == r_hi_loc, fr, 0.0
-            )  # (BAND, NT)
-        else:
-            roww = jnp.where(iota_h == r_lo_loc, 1.0, 0.0)
-
-        # All channels are sampled with ONE column-mix matmul: the target is
-        # channel-major stacked (CH*H, W), the banded lhs block is the
-        # concatenation of each channel's BAND-row window, so the dot's M
-        # height is CH*BAND (the MXU M axis is 128 deep — an M=BAND=32 dot
-        # uses a quarter of the array; stacking recovers it at no FLOP cost).
-        # The column-mix dot is the kernel's single most expensive op —
-        # ablation shows its cost scales with MXU PASS count, so the mode
-        # trade is passes vs precision (mixed_col_dot / _split_sample).
-        CH = 6 if bi else 3
-        if BAND < H:
-            blocks = [
-                t_all_ref[pl.ds(t_row + ch * HP + band, BAND), :]
-                for ch in range(CH)
-            ]  # CH x (BAND, W)
-        else:
-            blocks = [
-                t_all_ref[t_row + ch * HP:t_row + ch * HP + H, :]
-                for ch in range(CH)
-            ]
-        if _ablate == "const_samples":
-            # measurement hook: skip the sampling dots + row reduce entirely
-            # (state-independent constant samples; results invalid) —
-            # isolates dot + row-mix cost
-            samples = [pz * jnp.float32(0.1 * (ch + 1)) for ch in range(CH)]
-        else:
-            if mix_mode == "bf16x2g":
-                C_ch = _split_sample(
-                    blocks, colw, bilinear, exact=(0, 3) if bi else (0,)
-                )
-            else:
-                C = mixed_col_dot(
-                    jnp.concatenate(blocks, axis=0), colw, mix_mode, bilinear
-                )  # (CH*BAND, NT)
-                C_ch = [C[ch * BAND:(ch + 1) * BAND] for ch in range(CH)]
-            if _ablate == "const_rowmix":
-                # measurement hook: keep the col dot, replace the row-mix
-                # multiply+reduce with a static row slice (results invalid)
-                samples = [c[0:1] for c in C_ch]
-            else:
-                samples = [
-                    jnp.sum(c * roww, axis=0, keepdims=True) for c in C_ch
-                ]
-        i1w, gxw, gyw = samples[0], samples[1], samples[2]
-        if esm:
-            # ESM Jacobian (Benhimane & Malis 2004): average the warped
-            # target gradient with the hoisted source gradient (geom rows
-            # 4/5) — second-order convergence from first derivatives only
-            gxw = 0.5 * (gxw + g4[4:5])
-            gyw = 0.5 * (gyw + g4[5:6])
-
-        validf = valid.astype(jnp.float32)
-        resid = (i1w - i0) * validf
-        # Robust (IRLS) scale: rows weighted by sqrt(w(r)) so the Gram is
-        # the reweighted normal system (ops/robust.py; elementwise VPU work
-        # fused into the column build). The valid column stays unweighted —
-        # num_valid counts pixels, not weight mass.
-        if robust_loss == "none":
-            s_int = validf
-            r_w = resid
-        else:
-            s_int = validf * robust_sqrt_weight(
-                resid, robust_loss, robust_delta
-            )
-            r_w = resid * s_int  # validf is 0/1, so validf^2 == validf
-        cols_int = [
-            (gxw * Ju0) * s_int,
-            (gyw * Jv1) * s_int,
-            (gxw * Ju2 + gyw * Jv2) * s_int,
-            (gxw * Ju3 + gyw * Jv3) * s_int,
-            (gxw * Ju4 + gyw * Jv4) * s_int,
-            (gxw * Ju5 + gyw * Jv5) * s_int,
-            r_w,
-            validf,
-        ]
-        if not bi:
-            G = jnp.concatenate(cols_int, axis=0)  # (8, NT)
-        else:
-            d1w, dgxw, dgyw = samples[3], samples[4], samples[5]
-            r_dep = gain * (d1w - tz) * validf
-            if robust_loss == "none":
-                s_dep = validf
-                r_dep_w = r_dep
-            else:
-                s_dep = validf * robust_sqrt_weight(
-                    r_dep, robust_loss, robust_delta
-                )
-                r_dep_w = r_dep * s_dep
-            # J_rt z-row is [0, 0, 1, 0, rp2, rr2] (dR/dyaw has zero 3rd row)
-            cols_dep = [
-                gain * (dgxw * Ju0) * s_dep,
-                gain * (dgyw * Jv1) * s_dep,
-                gain * (dgxw * Ju2 + dgyw * Jv2 - 1.0) * s_dep,
-                gain * (dgxw * Ju3 + dgyw * Jv3) * s_dep,
-                gain * (dgxw * Ju4 + dgyw * Jv4 - rp2) * s_dep,
-                gain * (dgxw * Ju5 + dgyw * Jv5 - rr2) * s_dep,
-                r_dep_w,
-                jnp.zeros_like(validf),
-            ]
-            G = jnp.concatenate(cols_int + cols_dep, axis=0)  # (16, NT)
-        gram = jax.lax.dot_general(
-            G, G, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        return gram, n_masked
-
-    GD = 8 if not bi else 16
-    if n_tiles == 1:
-        total, masked = tile_gram(0)
-    else:
-        def acc_tile(t, acc):
-            g, m = tile_gram(t)
-            return acc[0] + g, acc[1] + m
-
-        total, masked = jax.lax.fori_loop(
-            0, n_tiles, acc_tile,
-            (jnp.zeros((GD, GD), jnp.float32), jnp.float32(0.0)),
-        )
-    return total, masked
-
-
-def _fused_kernel(
-    state_ref, const_ref, i0_ref, geom_ref, t_all_ref,
-    out_ref, *, H, W, NT, NP, bilinear, mix_mode="f32",
-    robust_loss="none", robust_delta=0.1, esm=False,
-):
-    """One linearization per call: reads the state from SMEM, emits the 8x8
-    Gram. Used by the per-iteration linearizer API (make_fused_linearizer).
-
-    Layout rules (shared with _linearize_gram): pixels live on the LANE axis
-    ((1, NT) per-pixel rows), sampling masks are (W, NT)/(BAND, NT) built by
-    sublane-broadcast iota compares — no sublane<->lane reshape anywhere.
-    Sampling is dot(target rows, column-mask) on the MXU, then a row-mask
-    multiply + sublane reduction; the Gram is one (8, NT)x(NT, 8)
-    dot_general. The (N, 6) Jacobian never exists outside registers.
-
-    robust_loss='tdist' reads the (traced) adaptive scale from state slot 6
-    — the solver loop carries it (solvers/gauss_newton.py adaptive_scale).
-    """
-    rd = state_ref[0, 6] if robust_loss == "tdist" else robust_delta
-    gram, n_masked = _linearize_gram(
-        state_ref[0, 0], state_ref[0, 1], state_ref[0, 2],
-        state_ref[0, 3], state_ref[0, 4], state_ref[0, 5],
-        const_ref[0, 0], const_ref[0, 1], const_ref[0, 2], const_ref[0, 3],
-        i0_ref, geom_ref, t_all_ref,
-        H=H, W=W, NT=NT, NP=NP, bilinear=bilinear, mix_mode=mix_mode,
-        robust_loss=robust_loss, robust_delta=rd, esm=esm,
-    )
-    # The (6,7)/(7,6) entries (sum of weighted residual x valid) are consumed
-    # nowhere; repurpose them to carry the band-masked pixel count out of the
-    # kernel (NormalEquations.band_masked).
-    ir = jax.lax.broadcasted_iota(jnp.int32, (8, 8), 0)
-    ic = jax.lax.broadcasted_iota(jnp.int32, (8, 8), 1)
-    slot = ((ir == 6) & (ic == 7)) | ((ir == 7) & (ic == 6))
-    out_ref[:] = jnp.where(slot, n_masked, gram)
-
-
-def _chol_solve6(A, b):
-    """Solve the 6x6 SPD system A x = b with unrolled SCALAR Cholesky.
-
-    A is [[scalar]*6]*6, b [scalar]*6; returns [scalar]*6. rsqrt pivots with
-    cached reciprocals: the scalar unit's sqrt/div are multi-cycle, and at
-    the coarse levels (50 iterations of a 1200-pixel image) the solve is a
-    visible slice of the iteration — one rsqrt per pivot, reciprocals reused
-    by both substitution sweeps."""
-    L = [[None] * 6 for _ in range(6)]
-    inv_diag = [None] * 6
-    for i in range(6):
-        acc = A[i][i]
-        for k in range(i):
-            acc = acc - L[i][k] * L[i][k]
-        acc = jnp.maximum(acc, 1e-30)
-        inv_d = jax.lax.rsqrt(acc)
-        L[i][i] = acc * inv_d  # sqrt(acc)
-        inv_diag[i] = inv_d
-        for j in range(i + 1, 6):
-            acc = A[j][i]
-            for k in range(i):
-                acc = acc - L[j][k] * L[i][k]
-            L[j][i] = acc * inv_d
-    ys = [None] * 6
-    for i in range(6):
-        acc = b[i]
-        for k in range(i):
-            acc = acc - L[i][k] * ys[k]
-        ys[i] = acc * inv_diag[i]
-    xs = [None] * 6
-    for i in range(5, -1, -1):
-        acc = ys[i]
-        for k in range(i + 1, 6):
-            acc = acc - L[k][i] * xs[k]
-        xs[i] = acc * inv_diag[i]
-    return xs
-
-
-def _run_gn_loop(
-    linearize, state_ref, state_out_ref, diag_out_ref,
-    max_iterations, min_gradient_norm, lambda_step, bi,
-    tdist_sigma0=None, tdist_burnin=0,
-):
-    """Shared in-kernel Gauss-Newton driver: lax.while_loop over iterations
-    with an unrolled scalar Cholesky solve. linearize(s0..s5) -> Gram
-    ((8,8) photometric or (16,16) bi-objective; the depth block is summed
-    into the normal equations).
-
-    tdist_sigma0 (robust_loss='tdist', photometric only): initial residual
-    scale (scalar, possibly traced — carried across levels by the model);
-    linearize is then called as linearize(s0..s5, sigma) and sigma is
-    re-estimated each iteration from Gram[6,6]/Gram[7,7] (= sum w r^2 / n,
-    one t fixed-point step — mirrors the XLA solver's adaptive_scale).
-    tdist_burnin runs that fixed point N extra times at the initial state
-    before the GN loop (first active level only — see gauss_newton_level)."""
-    tdist = tdist_sigma0 is not None
-    if tdist and bi:
-        raise ValueError("robust_loss='tdist' is photometric-only")
-
-    def cond(carry):
-        it, gnorm = carry[6], carry[7]
-        return (it < max_iterations) & (gnorm >= min_gradient_norm)
-
-    def body(carry):
-        s = carry[:6]
-        if tdist:
-            gram, n_masked = linearize(*s, carry[11])
-        else:
-            gram, n_masked = linearize(*s)
-        if bi:
-            A = [
-                [gram[i, j] + gram[8 + i, 8 + j] for j in range(6)]
-                for i in range(6)
-            ]
-            b = [gram[i, 6] + gram[8 + i, 14] for i in range(6)]
-            cost = gram[6, 6] + gram[14, 14]
-        else:
-            A = [[gram[i, j] for j in range(6)] for i in range(6)]
-            b = [gram[i, 6] for i in range(6)]
-            cost = gram[6, 6]
-        nvalid = gram[7, 7]
-        xs = _chol_solve6(A, b)
-        # non-finite guard: freeze instead of diverging
-        finite = jnp.isfinite(xs[0])
-        for k in range(1, 6):
-            finite = finite & jnp.isfinite(xs[k])
-        new_s = tuple(
-            jnp.where(finite, s[k] - lambda_step * xs[k], s[k]) for k in range(6)
-        )
-        gnorm = jnp.sqrt(sum(b[k] * b[k] for k in range(6)))
-        out = new_s + (
-            carry[6] + 1.0, gnorm, cost, nvalid,
-            jnp.maximum(carry[10], n_masked),
-        )
-        if tdist:
-            # sigma^2 <- sum w r^2 / n (ops/robust.py tdist_scale_update,
-            # inlined on the scalar unit)
-            var = cost / jnp.maximum(nvalid, 1.0)
-            sigma = jnp.maximum(jnp.sqrt(var), jnp.float32(TDIST_MIN_SCALE))
-            out = out + (sigma,)
-        return out
-
-    s_init = tuple(state_ref[0, k] for k in range(6))
-    if tdist:
-        sigma0 = jnp.asarray(tdist_sigma0, jnp.float32)
-        for _ in range(tdist_burnin):
-            g, _ = linearize(*s_init, sigma0)
-            var = g[6, 6] / jnp.maximum(g[7, 7], 1.0)
-            sigma0 = jnp.maximum(jnp.sqrt(var), jnp.float32(TDIST_MIN_SCALE))
-    init = s_init + (
-        jnp.float32(0.0), jnp.float32(jnp.inf), jnp.float32(0.0),
-        jnp.float32(0.0), jnp.float32(0.0),
-    ) + ((sigma0,) if tdist else ())
-    final = jax.lax.while_loop(cond, body, init)
-    for k in range(6):
-        state_out_ref[0, k] = final[k]
-    state_out_ref[0, 6] = jnp.float32(0.0)
-    state_out_ref[0, 7] = jnp.float32(0.0)
-    diag_out_ref[0, 0] = final[6]
-    diag_out_ref[0, 1] = jnp.where(jnp.isfinite(final[7]), final[7], 0.0)
-    diag_out_ref[0, 2] = final[8]
-    diag_out_ref[0, 3] = final[9]
-    diag_out_ref[0, 4] = final[10]  # max band-masked pixels per iteration
-    for k in range(5, 8):
-        diag_out_ref[0, k] = jnp.float32(0.0)
-
-
-def _run_tr_loop(
-    linearize, state_ref, state_out_ref, diag_out_ref, opts,
-):
-    """In-kernel trust-region Levenberg-Marquardt driver — the whole Ceres
-    per-level loop (solvers/trust_region.py semantics: LM step on the normal
-    equations with JtJ-diagonal Jacobi scaling, Ceres radius-update rule,
-    function/gradient/parameter/radius termination) as one lax.while_loop
-    inside the kernel, so a level costs ONE pallas call instead of one per
-    LM iteration. opts is a solvers.trust_region.TROptions (static floats —
-    the kernel specializes per level like the GN kernel's schedule).
-
-    Carry: 6 state scalars, last-ACCEPTED (8, 8) Gram, radius, iteration
-    count, done flag. All LM bookkeeping is scalar-unit work.
-    """
-
-    def cond(carry):
-        it, done = carry[8], carry[9]
-        return (it < opts.max_iterations) & jnp.logical_not(done)
-
-    def body(carry):
-        s = carry[:6]
-        gram = carry[6]
-        radius = carry[7]
-        A = [[gram[i, j] for j in range(6)] for i in range(6)]
-        b = [gram[i, 6] for i in range(6)]
-        cost = 0.5 * gram[6, 6]
-        diag = [
-            jnp.clip(A[i][i], 1e-12, 1e32) for i in range(6)
-        ]
-        inv_radius = 1.0 / radius
-        A_lm = [
-            [
-                A[i][j] + (diag[i] * inv_radius if i == j else 0.0)
-                for j in range(6)
-            ]
-            for i in range(6)
-        ]
-        step = _chol_solve6(A_lm, [-bi_ for bi_ in b])
-        finite = jnp.isfinite(step[0])
-        for k in range(1, 6):
-            finite = finite & jnp.isfinite(step[k])
-        step = [jnp.where(finite, st, 0.0) for st in step]
-
-        new_s = tuple(s[k] + step[k] for k in range(6))
-        new_gram, n_masked = linearize(*new_s)
-        new_cost = 0.5 * new_gram[6, 6]
-
-        # rho = actual / predicted decrease for the LM step
-        sb = sum(step[i] * b[i] for i in range(6))
-        sAs = sum(
-            step[i] * A[i][j] * step[j] for i in range(6) for j in range(6)
-        )
-        predicted = jnp.maximum(-sb - 0.5 * sAs, 1e-30)
-        rho = (cost - new_cost) / predicted
-
-        accept = rho > opts.min_relative_decrease
-        grow = radius / jnp.maximum(
-            1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3
-        )
-        new_radius = jnp.where(
-            accept,
-            jnp.minimum(grow, opts.max_trust_region_radius),
-            radius * 0.5,
-        )
-
-        s_n = tuple(jnp.where(accept, new_s[k], s[k]) for k in range(6))
-        gram_n = jnp.where(accept, new_gram, gram)
-
-        gnorm_n = jnp.max(jnp.abs(gram_n[:6, 6]))
-        f_done = accept & (
-            jnp.abs(cost - new_cost) <= opts.function_tolerance * cost
-        )
-        g_done = gnorm_n <= opts.gradient_tolerance
-        snorm = jnp.sqrt(sum(step[k] * step[k] for k in range(6)))
-        xnorm = jnp.sqrt(sum(s[k] * s[k] for k in range(6)))
-        p_done = accept & (
-            snorm
-            <= opts.parameter_tolerance
-            * (xnorm + opts.parameter_tolerance)
-        )
-        r_done = new_radius < opts.min_trust_region_radius
-        done = f_done | g_done | p_done | r_done
-        return s_n + (
-            gram_n, new_radius, carry[8] + 1.0, done,
-            jnp.maximum(carry[10], n_masked),
-        )
-
-    s0 = tuple(state_ref[0, k] for k in range(6))
-    gram0, masked0 = linearize(*s0)
-    done0 = jnp.max(jnp.abs(gram0[:6, 6])) <= opts.gradient_tolerance
-    init = s0 + (
-        gram0,
-        jnp.float32(opts.initial_trust_region_radius),
-        jnp.float32(0.0),
-        done0,
-        masked0,
-    )
-    final = jax.lax.while_loop(cond, body, init)
-    for k in range(6):
-        state_out_ref[0, k] = final[k]
-    state_out_ref[0, 6] = jnp.float32(0.0)
-    state_out_ref[0, 7] = jnp.float32(0.0)
-    gram_f = final[6]
-    diag_out_ref[0, 0] = final[8]  # iterations
-    diag_out_ref[0, 1] = jnp.max(jnp.abs(gram_f[:6, 6]))  # gnorm (max-norm)
-    diag_out_ref[0, 2] = 0.5 * gram_f[6, 6]  # accepted cost (Ceres 0.5x)
-    diag_out_ref[0, 3] = gram_f[7, 7]  # num_valid
-    diag_out_ref[0, 4] = final[7]  # final radius
-    diag_out_ref[0, 5] = final[10]  # max band-masked pixels per iteration
-    for k in range(6, 8):
-        diag_out_ref[0, k] = jnp.float32(0.0)
-
-
-def _fused_tr_kernel(
-    state_ref, const_ref, i0_ref, geom_ref, t_all_ref,
-    state_out_ref, diag_out_ref,
-    *, H, W, NT, NP, bilinear, opts, mix_mode="f32",
-    robust_loss="none", robust_delta=0.1, esm=False,
-):
-    """An ENTIRE trust-region LM level (the reference Ceres backend's
-    per-level solve, CPhotoconsistencyOdometryCeres.h:433-500) in one
-    kernel invocation."""
-    fx = const_ref[0, 0]
-    fy = const_ref[0, 1]
-    cx = const_ref[0, 2]
-    cy = const_ref[0, 3]
-
-    def linearize(s0, s1, s2, s3, s4, s5):
-        return _linearize_gram(
-            s0, s1, s2, s3, s4, s5, fx, fy, cx, cy,
-            i0_ref, geom_ref, t_all_ref,
-            H=H, W=W, NT=NT, NP=NP, bilinear=bilinear, mix_mode=mix_mode,
-            robust_loss=robust_loss, robust_delta=robust_delta, esm=esm,
-        )
-
-    _run_tr_loop(linearize, state_ref, state_out_ref, diag_out_ref, opts)
-
-
-def fused_tr_level(
-    source_intensity, source_depth, tgt_cols, intr,
-    init_state,
-    min_depth, max_depth,
-    opts,
-    sampling: str = "bilinear", interpret: bool = False,
-    mix_mode: str = "f32",
-    robust_loss: str = "none", robust_delta: float = 0.1,
-    source_grads=None,
-):
-    """Run a whole trust-region LM pyramid level as ONE pallas call.
-
-    opts: solvers.trust_region.TROptions (static — baked into the kernel).
-    Returns (state (6,), iterations, cost, gradient_norm, radius, num_valid,
-    band_masked) matching solvers.trust_region.TRLevelResult field order.
-    """
-    H, W = source_intensity.shape
-    NP, NT = _pick_tile_pixels(H, W)
-    kernel = functools.partial(
-        _fused_tr_kernel, H=H, W=W, NT=NT, NP=NP,
-        bilinear=(sampling == "bilinear"), opts=opts, mix_mode=mix_mode,
-        robust_loss=robust_loss, robust_delta=float(robust_delta),
-        esm=source_grads is not None,
-    )
-    const = jnp.stack(
-        [
-            jnp.float32(intr.fx), jnp.float32(intr.fy),
-            jnp.float32(intr.cx), jnp.float32(intr.cy),
-            jnp.float32(min_depth), jnp.float32(max_depth),
-            jnp.float32(0), jnp.float32(0),
-        ]
-    ).reshape(1, 8)
-    st = jnp.concatenate(
-        [jnp.asarray(init_state, jnp.float32), jnp.zeros(2, jnp.float32)]
-    ).reshape(1, 8)
-    inputs = [
-        st, const,
-        _pad_flat(source_intensity.reshape(1, H * W), NP),
-        pack_geometry(source_depth, intr, min_depth, max_depth, NP,
-                      source_grads),
-        tgt_cols,
-    ]
-    state_out, diag = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 2
-        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * (len(inputs) - 2),
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, 8), jnp.float32),
-            jax.ShapeDtypeStruct((1, 8), jnp.float32),
-        ),
-        interpret=interpret,
-    )(*inputs)
-    return (
-        state_out[0, :6],
-        diag[0, 0].astype(jnp.int32),
-        diag[0, 2],
-        diag[0, 1],
-        diag[0, 4],
-        diag[0, 3],
-        diag[0, 5],
-    )
-
-
-def _fused_gn_kernel(
-    state_ref, const_ref, i0_ref, geom_ref, t_all_ref,
-    state_out_ref, diag_out_ref,
-    *, H, W, NT, NP, bilinear, max_iterations, min_gradient_norm, lambda_step,
-    mix_mode="f32", robust_loss="none", robust_delta=0.1, esm=False,
-    tdist_burnin=0, _ablate=None,
-):
-    """An ENTIRE photometric Gauss-Newton level in one kernel invocation.
-
-    Runs the reference's per-level loop (linearize -> g = J^T r ->
-    x -= lambda (J^T J)^{-1} g -> terminate on iteration budget or ||g||,
-    CPhotoconsistencyOdometryAnalytic.h:499-563) as an in-kernel
-    lax.while_loop with an unrolled scalar Cholesky solve — one pallas call
-    per LEVEL instead of one per iteration (each call costs ~15 us of
-    launch/DMA latency; the reference schedules run 75 iterations/frame).
-
-    state_out_ref (SMEM, (1, 8)): final [x y z yaw pitch roll 0 0].
-    diag_out_ref (SMEM, (1, 8)): [iterations, ||g||, cost, num_valid,
-    band_masked, 0...].
-    """
-    fx = const_ref[0, 0]
-    fy = const_ref[0, 1]
-    cx = const_ref[0, 2]
-    cy = const_ref[0, 3]
-
-    if robust_loss == "tdist":
-        # adaptive scale: the GN driver carries sigma and passes it as the
-        # (traced) robust_delta of each linearization
-        def linearize(s0, s1, s2, s3, s4, s5, sigma):
-            return _linearize_gram(
-                s0, s1, s2, s3, s4, s5, fx, fy, cx, cy,
-                i0_ref, geom_ref, t_all_ref,
-                H=H, W=W, NT=NT, NP=NP, bilinear=bilinear, mix_mode=mix_mode,
-                robust_loss=robust_loss, robust_delta=sigma, esm=esm,
-                _ablate=_ablate,
-            )
-
-        # the (traced) cross-level carried scale rides in state slot 6; the
-        # static robust_delta is only the cold seed the model fell back to
-        sigma0 = state_ref[0, 6]
-    else:
-        def linearize(s0, s1, s2, s3, s4, s5):
-            return _linearize_gram(
-                s0, s1, s2, s3, s4, s5, fx, fy, cx, cy,
-                i0_ref, geom_ref, t_all_ref,
-                H=H, W=W, NT=NT, NP=NP, bilinear=bilinear, mix_mode=mix_mode,
-                robust_loss=robust_loss, robust_delta=robust_delta, esm=esm,
-                _ablate=_ablate,
-            )
-
-        sigma0 = None
-
-    _run_gn_loop(
-        linearize, state_ref, state_out_ref, diag_out_ref,
-        max_iterations, min_gradient_norm, lambda_step, bi=False,
-        tdist_sigma0=sigma0, tdist_burnin=tdist_burnin,
-    )
-
-
-def _fused_gn_bi_kernel(
-    state_ref, const_ref, i0_ref, geom_ref, t_all_ref,
-    state_out_ref, diag_out_ref,
-    *, H, W, NT, NP, bilinear, max_iterations, min_gradient_norm, lambda_step,
-    mix_mode="f32", robust_loss="none", robust_delta=0.1,
-):
-    """Bi-objective (intensity + depth) Gauss-Newton level in one kernel.
-
-    const_ref slot 6 carries the depth-component gain mean(I1)/mean(D1)
-    (CPhotoconsistencyOdometryBiObjective.h:299)."""
-    fx = const_ref[0, 0]
-    fy = const_ref[0, 1]
-    cx = const_ref[0, 2]
-    cy = const_ref[0, 3]
-    gain = const_ref[0, 6]
-
-    def linearize(s0, s1, s2, s3, s4, s5):
-        return _linearize_gram(
-            s0, s1, s2, s3, s4, s5, fx, fy, cx, cy,
-            i0_ref, geom_ref, t_all_ref,
-            bi=True, gain=gain,
-            H=H, W=W, NT=NT, NP=NP, bilinear=bilinear, mix_mode=mix_mode,
-            robust_loss=robust_loss, robust_delta=robust_delta,
-        )
-
-    _run_gn_loop(
-        linearize, state_ref, state_out_ref, diag_out_ref,
-        max_iterations, min_gradient_norm, lambda_step, bi=True,
-    )
-
-
-def make_fused_linearizer(
-    source_intensity, source_depth, tgt_cols, intr,
-    min_depth, max_depth, sampling="nearest", interpret=False,
-    mix_mode="f32", robust_loss="none", robust_delta=0.1,
-    source_grads=None,
-):
-    """Build linearize(state) -> NormalEquations with all loop-invariant work
-    (flattening, constant SMEM pack, kernel specialization) done once, so a
-    GN iteration is exactly ONE pallas_call plus a couple of tiny reshapes.
-
-    source_grads=(gx0, gy0) selects the ESM Jacobian (gradient_at='esm')."""
-    H, W = source_intensity.shape
-    NP, NT = _pick_tile_pixels(H, W)
-    t_all = tgt_cols  # (3H, W) channel-major stack from pack_target_colmajor
-    kernel = functools.partial(
-        _fused_kernel, H=H, W=W, NT=NT, NP=NP, bilinear=(sampling == "bilinear"),
-        mix_mode=mix_mode, robust_loss=robust_loss,
-        robust_delta=float(robust_delta), esm=source_grads is not None,
-    )
-    i0_flat = _pad_flat(source_intensity.reshape(1, H * W), NP)
-    geom = pack_geometry(
-        source_depth, intr, min_depth, max_depth, NP, source_grads
-    )
-    const = jnp.stack(
-        [
-            jnp.float32(intr.fx), jnp.float32(intr.fy),
-            jnp.float32(intr.cx), jnp.float32(intr.cy),
-            jnp.float32(min_depth), jnp.float32(max_depth),
-            jnp.float32(0), jnp.float32(0),
-        ]
-    ).reshape(1, 8)
-    call = pl.pallas_call(
-        kernel,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((8, 8), jnp.float32),
-        interpret=interpret,
-    )
-
-    def linearize(state, robust_scale=None) -> NormalEquations:
-        # slot 6 carries the robust scale; for tdist the solver loop passes
-        # its carried adaptive sigma, otherwise the static delta rides along
-        # unused by the kernel
-        scale = (
-            jnp.float32(robust_delta) if robust_scale is None
-            else jnp.asarray(robust_scale, jnp.float32)
-        )
-        st = jnp.concatenate(
-            [state.astype(jnp.float32), scale.reshape(1),
-             jnp.zeros(1, jnp.float32)]
-        ).reshape(1, 8)
-        gram = call(st, const, i0_flat, geom, t_all)
-        return NormalEquations(
-            JtJ=gram[:6, :6], Jtr=gram[:6, 6], cost=gram[6, 6],
-            num_valid=gram[7, 7], band_masked=gram[6, 7],
-        )
-
-    return linearize
-
-
-def fused_gn_level(
-    source_intensity, source_depth, tgt_cols, intr,
-    init_state,
-    min_depth, max_depth,
-    max_iterations: int, min_gradient_norm: float, lambda_step: float,
-    sampling: str = "nearest", interpret: bool = False,
-    depth_cols=None, depth_gain=None, mix_mode: str = "f32",
-    robust_loss: str = "none", robust_delta: float = 0.1,
-    source_grads=None, robust_scale=None, tdist_burnin: int = 0,
-    _ablate=None,
-):
-    """Run a whole Gauss-Newton pyramid level as ONE pallas call.
-
-    robust_scale (robust_loss='tdist'): traced initial scale carried from
-    the previous level (defaults to robust_delta); tdist_burnin: extra
-    scale-only fixed-point passes at the initial state (first active level).
-
-    Returns (state (6,), iterations, gradient_norm, cost, num_valid,
-    band_masked) with GNLevelResult-compatible semantics
-    (solvers/gauss_newton.py): an update is performed, then its gradient
-    norm gates the next iteration. band_masked is the max count (over
-    iterations) of pixels the banded sampling window dropped — nonzero only
-    under displacement beyond the band at fine levels; material values mean
-    the level under-observed the motion (fall back to use_fused=False).
-
-    depth_cols = (target_depth, depth_grad_x, depth_grad_y) with depth_gain
-    switches to the bi-objective intensity+depth objective.
-
-    source_grads=(gx0, gy0) selects the ESM Jacobian (gradient_at='esm';
-    photometric objective only).
-
-    tgt_cols is the (3H, W) channel-major stack from pack_target_colmajor;
-    with depth_cols the kernel sees a (6H, W) stack and samples all six
-    channels with one column-mix matmul per tile.
-    """
-    H, W = source_intensity.shape
-    NP, NT = _pick_tile_pixels(H, W)
-    t_all = tgt_cols
-    bi = depth_cols is not None
-    if bi:
-        if source_grads is not None:
-            raise ValueError("gradient_at='esm' is photometric-only")
-        if robust_loss == "tdist":
-            raise ValueError(
-                "robust_loss='tdist' is photometric-only (the intensity and "
-                "depth channels would need separate adaptive scales); use "
-                "huber/cauchy/tukey for the bi-objective backend"
-            )
-        t_all = jnp.concatenate(
-            [t_all] + [_pad_channel_rows(c) for c in depth_cols], axis=0
-        )  # (6*ceil8(H), W)
-    i0_flat = _pad_flat(source_intensity.reshape(1, H * W), NP)
-    geom = pack_geometry(
-        source_depth, intr, min_depth, max_depth, NP, source_grads
-    )
-    return fused_gn_level_packs(
-        i0_flat, geom, t_all, intr, init_state, min_depth, max_depth,
-        max_iterations, min_gradient_norm, lambda_step,
-        H=H, W=W, sampling=sampling, interpret=interpret, bi=bi,
-        depth_gain=depth_gain, mix_mode=mix_mode, robust_loss=robust_loss,
-        robust_delta=robust_delta, esm=source_grads is not None,
-        robust_scale=robust_scale, tdist_burnin=tdist_burnin,
-        _ablate=_ablate,
-    )
-
-
-def fused_gn_level_packs(
-    i0_flat, geom, t_all, intr, init_state,
-    min_depth, max_depth,
-    max_iterations: int, min_gradient_norm: float, lambda_step: float,
-    *, H: int, W: int, sampling: str = "nearest", interpret: bool = False,
-    bi: bool = False, depth_gain=None, mix_mode: str = "f32",
-    robust_loss: str = "none", robust_delta: float = 0.1,
-    esm: bool = False, robust_scale=None, tdist_burnin: int = 0,
-    _ablate=None,
-):
-    """fused_gn_level on PRE-PACKED per-frame inputs.
-
-    i0_flat (1, NP) padded source intensity, geom (4|6, NP) hoisted source
-    geometry (pack_geometry), t_all the channel-major target stack
-    (pack_target_colmajor; with bi=True the 6-channel stack). The prepped
-    sequence path (models/analytic.py prep_frame_analytic) computes these
-    ONCE per frame, batched, instead of per pair inside the serial scan —
-    a frame in a chain is the target of pair k-1 AND the source of pair k,
-    so the unprepped path built every frame's pyramid twice."""
-    NP, NT = _pick_tile_pixels(H, W)
-    kern_fn = _fused_gn_bi_kernel if bi else _fused_gn_kernel
-    extra = {} if bi else {
-        "esm": esm, "tdist_burnin": int(tdist_burnin),
-        "_ablate": _ablate,
-    }
-    kernel = functools.partial(
-        kern_fn, H=H, W=W, NT=NT, NP=NP, bilinear=(sampling == "bilinear"),
-        max_iterations=float(max_iterations),
-        min_gradient_norm=float(min_gradient_norm),
-        lambda_step=float(lambda_step), mix_mode=mix_mode,
-        robust_loss=robust_loss, robust_delta=float(robust_delta), **extra,
-    )
-    gain = jnp.float32(0.0) if depth_gain is None else jnp.asarray(depth_gain, jnp.float32)
-    const = jnp.stack(
-        [
-            jnp.float32(intr.fx), jnp.float32(intr.fy),
-            jnp.float32(intr.cx), jnp.float32(intr.cy),
-            jnp.float32(min_depth), jnp.float32(max_depth),
-            gain, jnp.float32(0),
-        ]
-    ).reshape(1, 8)
-    # slot 6: the tdist carried scale (robust_delta seed when not supplied)
-    scale = (
-        jnp.float32(robust_delta) if robust_scale is None
-        else jnp.asarray(robust_scale, jnp.float32)
-    )
-    st = jnp.concatenate(
-        [jnp.asarray(init_state, jnp.float32), scale.reshape(1),
-         jnp.zeros(1, jnp.float32)]
-    ).reshape(1, 8)
-    inputs = [st, const, i0_flat, geom, t_all]
-    state_out, diag = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 2
-        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * (len(inputs) - 2),
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, 8), jnp.float32),
-            jax.ShapeDtypeStruct((1, 8), jnp.float32),
-        ),
-        interpret=interpret,
-    )(*inputs)
-    return (
-        state_out[0, :6],
-        diag[0, 0].astype(jnp.int32),
-        diag[0, 1],
-        diag[0, 2],
-        diag[0, 3],
-        diag[0, 4],
-    )
-
-
-# ---------------------------------------------------------------------------
-# multi-stream whole-level kernel (S independent alignments per call)
-# ---------------------------------------------------------------------------
-
-
-def _fused_gn_multi_kernel(
-    state_ref, const_ref, i0_ref, geom_ref, t_all_ref,
-    state_out_ref, diag_out_ref,
-    *, S, H, W, NT, NP, bilinear, max_iterations, min_gradient_norm,
-    lambda_step, mix_mode="f32", robust_loss="none", robust_delta=0.1,
-    esm=False,
-):
-    """S INDEPENDENT photometric GN alignments advanced by ONE kernel.
-
-    Motivation (BASELINE.md roofline): a single alignment is bounded by its
-    SERIAL iteration chain (~3.6 us/iteration of mask-build + dots + scalar
-    solve), not by MXU throughput — the chip saturates at ~3.5k VGA pairs/s
-    however the work arrives, because vmap turns the batch into a
-    serializing Pallas grid axis and per-kernel launch overhead repeats.
-    Here one kernel instance holds S streams' level data VMEM-resident and
-    advances all S chains inside a single lax.while_loop: the S per-stream
-    column-mix dots issue back-to-back (the MXU pipeline stays busy while
-    the VPU builds the next stream's masks) and all launch/bookkeeping
-    overhead is paid once per iteration instead of S times.
-
-    Note the literal MXU-pass sharing suggested in round-1 review (stacking
-    S streams' target bands into the dot's M axis like the channel stack)
-    is NOT possible: the column-mix weights (W, NT) encode each stream's
-    OWN warped coordinates, so streams cannot share a single rhs — stacking
-    lhs rows against one rhs would sample stream A's target at stream B's
-    warp. The win available is latency/VPU amortization, implemented here.
-
-    All streams share one config (schedule, sampling, intrinsics — the
-    serving rig case). Per-stream termination: a stream whose gradient norm
-    drops below the threshold freezes (state and diagnostics stop
-    updating); the loop runs until every stream froze or the shared
-    iteration budget is spent. Frozen streams still compute their
-    linearization (predicating MXU work in-kernel costs more than it
-    saves at these sizes); their updates are masked out.
-
-    state_ref (S, 8) SMEM rows [x y z yaw pitch roll, 0, 0];
-    i0_ref (S, NP); geom_ref (S*GR, NP) stream-major (GR = 4, or 6 with
-    esm); t_all_ref (S*3H, W) stream-major channel stacks.
-    Outputs: state_out_ref (S, 8); diag_out_ref (S, 8) rows
-    [iterations, ||g||, cost, num_valid, band_masked, 0, 0, 0].
-    """
-    fx = const_ref[0, 0]
-    fy = const_ref[0, 1]
-    cx = const_ref[0, 2]
-    cy = const_ref[0, 3]
-    GR = 6 if esm else 4
-
-    def linearize(s_idx, s0, s1, s2, s3, s4, s5):
-        return _linearize_gram(
-            s0, s1, s2, s3, s4, s5, fx, fy, cx, cy,
-            i0_ref, geom_ref, t_all_ref,
-            H=H, W=W, NT=NT, NP=NP, bilinear=bilinear, mix_mode=mix_mode,
-            robust_loss=robust_loss, robust_delta=robust_delta, esm=esm,
-            i0_row=s_idx, geom_row=s_idx * GR, t_row=s_idx * 3 * _ceil8(H),
-        )
-
-    # carry layout: per stream 11 scalars
-    # [x y z yaw pitch roll, it, gnorm, cost, nvalid, masked]
-    PER = 11
-
-    def active(carry, s):
-        it = carry[s * PER + 6]
-        gnorm = carry[s * PER + 7]
-        return (it < max_iterations) & (gnorm >= min_gradient_norm)
-
-    def cond(carry):
-        a = active(carry, 0)
-        for s in range(1, S):
-            a = a | active(carry, s)
-        return a
-
-    def body(carry):
-        out = list(carry)
-        for s in range(S):
-            st = tuple(carry[s * PER + k] for k in range(6))
-            gram, n_masked = linearize(s, *st)
-            A = [[gram[i, j] for j in range(6)] for i in range(6)]
-            b = [gram[i, 6] for i in range(6)]
-            cost = gram[6, 6]
-            nvalid = gram[7, 7]
-            xs = _chol_solve6(A, b)
-            finite = jnp.isfinite(xs[0])
-            for k in range(1, 6):
-                finite = finite & jnp.isfinite(xs[k])
-            act = active(carry, s)
-            upd = act & finite
-            for k in range(6):
-                out[s * PER + k] = jnp.where(
-                    upd, st[k] - lambda_step * xs[k], st[k]
-                )
-            gnorm = jnp.sqrt(sum(b[k] * b[k] for k in range(6)))
-            out[s * PER + 6] = carry[s * PER + 6] + jnp.where(act, 1.0, 0.0)
-            out[s * PER + 7] = jnp.where(act, gnorm, carry[s * PER + 7])
-            out[s * PER + 8] = jnp.where(act, cost, carry[s * PER + 8])
-            out[s * PER + 9] = jnp.where(act, nvalid, carry[s * PER + 9])
-            out[s * PER + 10] = jnp.where(
-                act, jnp.maximum(carry[s * PER + 10], n_masked),
-                carry[s * PER + 10],
-            )
-        return tuple(out)
-
-    init = []
-    for s in range(S):
-        init.extend(state_ref[s, k] for k in range(6))
-        init.extend(
-            (jnp.float32(0.0), jnp.float32(jnp.inf), jnp.float32(0.0),
-             jnp.float32(0.0), jnp.float32(0.0))
-        )
-    final = jax.lax.while_loop(cond, body, tuple(init))
-    for s in range(S):
-        for k in range(6):
-            state_out_ref[s, k] = final[s * PER + k]
-        state_out_ref[s, 6] = jnp.float32(0.0)
-        state_out_ref[s, 7] = jnp.float32(0.0)
-        diag_out_ref[s, 0] = final[s * PER + 6]
-        g = final[s * PER + 7]
-        diag_out_ref[s, 1] = jnp.where(jnp.isfinite(g), g, 0.0)
-        diag_out_ref[s, 2] = final[s * PER + 8]
-        diag_out_ref[s, 3] = final[s * PER + 9]
-        diag_out_ref[s, 4] = final[s * PER + 10]
-        for k in range(5, 8):
-            diag_out_ref[s, k] = jnp.float32(0.0)
-
-
-def multi_stream_vmem_bytes(S: int, H: int, W: int, esm: bool = False) -> int:
-    """Rough resident VMEM footprint of fused_gn_level_multi's stacked
-    inputs (the working set per tile is on top, ~2-3 MB)."""
-    NP, _ = _pick_tile_pixels(H, W)
-    GR = 6 if esm else 4
-    return 4 * S * (3 * _ceil8(H) * W + GR * NP + NP)
-
-
-MULTI_VMEM_BUDGET = 11_000_000  # leave ~5 MB of the 16 MB for working set
-
-
-def fused_gn_level_multi(
-    source_intensity,  # (S, H, W)
-    source_depth,  # (S, H, W)
-    tgt_cols,  # (S, 3H, W) per-stream channel-major stacks
-    intr,
-    init_states,  # (S, 6)
-    min_depth, max_depth,
-    max_iterations: int, min_gradient_norm: float, lambda_step: float,
-    sampling: str = "nearest", interpret: bool = False,
-    mix_mode: str = "f32",
-    robust_loss: str = "none", robust_delta: float = 0.1,
-    source_grads=None,  # (gx0, gy0) each (S, H, W) for ESM
-):
-    """Run ONE whole GN pyramid level for S independent alignments in a
-    single pallas call (see _fused_gn_multi_kernel rationale).
-
-    Returns (states (S, 6), iterations (S,), gradient_norm (S,),
-    cost (S,), num_valid (S,), band_masked (S,)). Callers should gate on
-    multi_stream_vmem_bytes(S, H, W) <= MULTI_VMEM_BUDGET and fall back to
-    per-stream kernels / the XLA path when the stacked level data would not
-    fit VMEM (e.g. many streams at full VGA level 0).
-    """
-    S, H, W = source_intensity.shape
-    NP, NT = _pick_tile_pixels(H, W)
-    esm = source_grads is not None
-    kernel = functools.partial(
-        _fused_gn_multi_kernel, S=S, H=H, W=W, NT=NT, NP=NP,
-        bilinear=(sampling == "bilinear"),
-        max_iterations=float(max_iterations),
-        min_gradient_norm=float(min_gradient_norm),
-        lambda_step=float(lambda_step), mix_mode=mix_mode,
-        robust_loss=robust_loss, robust_delta=float(robust_delta), esm=esm,
-    )
-    const = jnp.stack(
-        [
-            jnp.float32(intr.fx), jnp.float32(intr.fy),
-            jnp.float32(intr.cx), jnp.float32(intr.cy),
-            jnp.float32(min_depth), jnp.float32(max_depth),
-            jnp.float32(0), jnp.float32(0),
-        ]
-    ).reshape(1, 8)
-    st = jnp.concatenate(
-        [
-            jnp.asarray(init_states, jnp.float32).reshape(S, 6),
-            jnp.zeros((S, 2), jnp.float32),
-        ],
-        axis=1,
-    )
-    i0 = jax.vmap(lambda a: _pad_flat(a.reshape(1, H * W), NP)[0])(
-        source_intensity
-    )  # (S, NP)
-    if esm:
-        geom = jnp.concatenate(
-            [
-                pack_geometry(
-                    source_depth[s], intr, min_depth, max_depth, NP,
-                    (source_grads[0][s], source_grads[1][s]),
-                )
-                for s in range(S)
-            ],
-            axis=0,
-        )
-    else:
-        geom = jnp.concatenate(
-            [
-                pack_geometry(source_depth[s], intr, min_depth, max_depth, NP)
-                for s in range(S)
-            ],
-            axis=0,
-        )  # (S*GR, NP)
-    HP = _ceil8(H)
-    t_all = jnp.asarray(tgt_cols).reshape(S, 3, H, W)
-    if HP != H:  # per-channel aligned stride (see _pad_channel_rows)
-        t_all = jnp.pad(t_all, ((0, 0), (0, 0), (0, HP - H), (0, 0)))
-    t_all = t_all.reshape(S * 3 * HP, W)
-    state_out, diag = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 2
-        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((S, 8), jnp.float32),
-            jax.ShapeDtypeStruct((S, 8), jnp.float32),
-        ),
-        interpret=interpret,
-    )(st, const, i0, geom, t_all)
-    return (
-        state_out[:, :6],
-        diag[:, 0].astype(jnp.int32),
-        diag[:, 1],
-        diag[:, 2],
-        diag[:, 3],
-        diag[:, 4],
-    )
-
-
-def fused_normal_equations_pallas(
-    source_intensity: jax.Array,
-    source_depth: jax.Array,
-    tgt_cols,  # (3H, W) channel-major stack from pack_target_colmajor
-    state: jax.Array,
-    intr: Intrinsics,
-    min_depth: float,
-    max_depth: float,
-    sampling: str = "nearest",
-    interpret: bool = False,
-    mix_mode: str = "f32",
-    robust_loss: str = "none",
-    robust_delta: float = 0.1,
-    source_grads=None,
-) -> NormalEquations:
-    linearize = make_fused_linearizer(
-        source_intensity, source_depth, tgt_cols, intr,
-        float(min_depth), float(max_depth), sampling, interpret,
-        mix_mode=mix_mode, robust_loss=robust_loss, robust_delta=robust_delta,
-        source_grads=source_grads,
-    )
-    return linearize(state)
-
-
-# ---------------------------------------------------------------------------
-# unified entry (compatibility shim used by models/analytic.py)
-# ---------------------------------------------------------------------------
-
-
-def fused_normal_equations(
-    source_intensity: jax.Array,
-    source_depth: jax.Array,
-    target_intensity: jax.Array,
-    target_grad_x: jax.Array,
-    target_grad_y: jax.Array,
-    state: jax.Array,
-    intr: Intrinsics,
-    min_depth: float = 0.3,
-    max_depth: float = 5.0,
-    sampling: str = "nearest",
-    gradient_at: str = "warped",
-    robust_loss: str = "none",
-    robust_delta: float = 0.1,
-    source_grads=None,
-) -> NormalEquations:
-    """Dispatch to the fastest correct path for this level size.
-
-    gradient_at='source' (the reference analytic kernel's convention) is only
-    available in the reference-shaped XLA path; 'warped' and 'esm' (with
-    source_grads) run the fused kernel on TPU.
-    """
-    H, W = source_intensity.shape
-    if gradient_at not in ("warped", "esm"):
-        r, J, valid = photometric_residual_jacobian(
-            source_intensity, source_depth, target_intensity,
-            target_grad_x, target_grad_y, state, intr,
-            min_depth=min_depth, max_depth=max_depth,
-            sampling=sampling, gradient_at=gradient_at,
-        )
-        return normal_equations(r, J, valid, robust_loss, robust_delta)
-    sg = source_grads if gradient_at == "esm" else None
-    if gradient_at == "esm" and sg is None:
-        raise ValueError("gradient_at='esm' needs source_grads=(gx0, gy0)")
-    if _HAS_PALLAS and H <= FUSED_MAX_H and jax.default_backend() == "tpu":
-        tgt = pack_target_colmajor(target_intensity, target_grad_x, target_grad_y)
-        return fused_normal_equations_pallas(
-            source_intensity, source_depth, tgt, state, intr,
-            min_depth, max_depth, sampling,
-            robust_loss=robust_loss, robust_delta=robust_delta,
-            source_grads=sg,
-        )
-    if gradient_at == "esm":
-        r, J, valid = photometric_residual_jacobian(
-            source_intensity, source_depth, target_intensity,
-            target_grad_x, target_grad_y, state, intr,
-            min_depth=min_depth, max_depth=max_depth,
-            sampling=sampling, gradient_at="esm",
-            source_grad_x=sg[0], source_grad_y=sg[1],
-        )
-        return normal_equations(r, J, valid, robust_loss, robust_delta)
-    packed = pack_target(target_intensity, target_grad_x, target_grad_y)
-    return packed_normal_equations(
-        source_intensity, source_depth, packed, state, intr,
-        min_depth, max_depth, sampling,
-        robust_loss=robust_loss, robust_delta=robust_delta,
-    )

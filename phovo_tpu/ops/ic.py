@@ -1,7 +1,7 @@
 """Inverse-compositional Gauss-Newton: constant-Jacobian photometric alignment.
 
-A TPU-native extension beyond the reference's three backends (which all
-re-linearize at the warped position every iteration,
+An extension beyond the reference's three backends (which all re-linearize
+at the warped position every iteration,
 CPhotoconsistencyOdometryAnalytic.h:191-367). The inverse-compositional
 (IC) formulation (Baker & Matthews, "Lucas-Kanade 20 Years On") parametrizes
 the update on the SOURCE frame:
@@ -16,12 +16,8 @@ pyramid level, and every GN iteration reduces to
     -> T <- T . T(delta)^{-1}
 
 versus the forward backends' three-channel sampling + fresh Jacobian chain +
-fresh factorization. On the fused kernel this cuts the dominant column-mix
-matmul MACs by 3x and most of the per-pixel VPU work.
-
-The kernel carries the pose as a rotation matrix + translation (12 scalars):
-composition is pure scalar FMA + sin/cos, and the Euler extraction (atan2,
-unsupported in Pallas TPU) happens once, outside, in XLA
+fresh factorization. The pose is carried as a 4x4 matrix across iterations
+and levels; the Euler state is extracted once at the end
 (se3.matrix_to_state).
 
 Approximation note (standard for IC trackers): J0^T J0 is accumulated over
@@ -33,25 +29,13 @@ tests/test_ic.py checks pose agreement with the analytic backend.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
+from phovo_tpu.ops import se3
+from phovo_tpu.ops import warp as warp_ops
 from phovo_tpu.ops.camera import Intrinsics
-from phovo_tpu.ops.fused import (
-    _pad_channel_rows as _pad_rows8,
-    _pad_flat, _pick_tile_pixels, mixed_col_dot, pack_geometry,
-)
 from phovo_tpu.ops.residuals import warp_and_jacobian
-
-try:  # pragma: no cover - import guard
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
 
 
 def ic_precompute(
@@ -96,332 +80,7 @@ def ic_precompute(
     return J8, L
 
 
-def _compose_inverse_update(R, t, delta, lam):
-    """Scalar-domain T <- T . T(lam*delta)^{-1} with ZYX-Euler delta.
-
-    R is a 9-tuple (row-major), t a 3-tuple, delta a 6-tuple of scalars."""
-    dx, dy, dz, dyaw, dpitch, droll = (lam * d for d in delta)
-    cy, sy = jnp.cos(dyaw), jnp.sin(dyaw)
-    cp, sp = jnp.cos(dpitch), jnp.sin(dpitch)
-    cr, sr = jnp.cos(droll), jnp.sin(droll)
-    D00, D01, D02 = cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr
-    D10, D11, D12 = sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr
-    D20, D21, D22 = -sp, cp * sr, cp * cr
-    # T(d)^{-1} = [D^T, -D^T t_d]
-    I00, I01, I02 = D00, D10, D20
-    I10, I11, I12 = D01, D11, D21
-    I20, I21, I22 = D02, D12, D22
-    it0 = -(I00 * dx + I01 * dy + I02 * dz)
-    it1 = -(I10 * dx + I11 * dy + I12 * dz)
-    it2 = -(I20 * dx + I21 * dy + I22 * dz)
-    R00, R01, R02, R10, R11, R12, R20, R21, R22 = R
-    t0, t1, t2 = t
-    n00 = R00 * I00 + R01 * I10 + R02 * I20
-    n01 = R00 * I01 + R01 * I11 + R02 * I21
-    n02 = R00 * I02 + R01 * I12 + R02 * I22
-    n10 = R10 * I00 + R11 * I10 + R12 * I20
-    n11 = R10 * I01 + R11 * I11 + R12 * I21
-    n12 = R10 * I02 + R11 * I12 + R12 * I22
-    n20 = R20 * I00 + R21 * I10 + R22 * I20
-    n21 = R20 * I01 + R21 * I11 + R22 * I21
-    n22 = R20 * I02 + R21 * I12 + R22 * I22
-    nt0 = R00 * it0 + R01 * it1 + R02 * it2 + t0
-    nt1 = R10 * it0 + R11 * it1 + R12 * it2 + t1
-    nt2 = R20 * it0 + R21 * it1 + R22 * it2 + t2
-    return (n00, n01, n02, n10, n11, n12, n20, n21, n22), (nt0, nt1, nt2)
-
-
-def _tri_solve(L_get, g, inv_diag=None):
-    """Solve (L L^T) x = g with scalar forward/back substitution; L_get(i, j)
-    returns the factor entry as a scalar. inv_diag (precomputed 1/L[i][i])
-    avoids 12 multi-cycle scalar divides per call — the factor is constant
-    per level, so callers hoist the reciprocals out of the iteration loop."""
-    if inv_diag is None:
-        inv_diag = [1.0 / L_get(i, i) for i in range(6)]
-    ys = [None] * 6
-    for i in range(6):
-        acc = g[i]
-        for k in range(i):
-            acc = acc - L_get(i, k) * ys[k]
-        ys[i] = acc * inv_diag[i]
-    xs = [None] * 6
-    for i in range(5, -1, -1):
-        acc = ys[i]
-        for k in range(i + 1, 6):
-            acc = acc - L_get(k, i) * xs[k]
-        xs[i] = acc * inv_diag[i]
-    return xs
-
-
-def _ic_gn_kernel(
-    state_ref, const_ref, L_ref, geom_ref, J8_ref, t_i_ref,
-    state_out_ref, diag_out_ref,
-    *, H, W, NT, NP, bilinear, max_iterations, min_gradient_norm, lambda_step,
-    mix_mode="f32",
-):
-    """Whole IC Gauss-Newton level in one kernel call.
-
-    state_ref (SMEM, (1, 16)): [R row-major (9), t (3), pad]. The pose stays
-    in matrix form throughout (Pallas TPU has no atan2 for Euler extraction).
-    L_ref (SMEM, (1, 36)): row-major 6x6 Cholesky factor of J0^T J0.
-    geom_ref (VMEM, (3, NP)): hoisted [px, py, pz] source
-    geometry (ops/fused.py pack_geometry) — state-invariant, so it is NOT
-    recomputed per iteration.
-    J8_ref (VMEM, (8, NP)): [J0..J5; I0; valid0] from ic_precompute.
-    """
-    fx = const_ref[0, 0]
-    fy = const_ref[0, 1]
-    cx = const_ref[0, 2]
-    cy_ = const_ref[0, 3]
-
-    n_tiles = NP // NT
-
-    def level_pass(R, t):
-        """One linearization: returns (g (8,1) = J8 @ r, cost, nvalid)."""
-        R00, R01, R02, R10, R11, R12, R20, R21, R22 = R
-        t0, t1, t2 = t
-
-        def tile(step, acc):
-            g_acc, cost_acc, nv_acc, nm_acc = acc
-            off = pl.multiple_of(step * NT, 128)
-            g4 = geom_ref[:, pl.ds(off, NT)] if n_tiles > 1 else geom_ref[:]
-            J8 = J8_ref[:, pl.ds(off, NT)] if n_tiles > 1 else J8_ref[:]
-            px = g4[0:1]
-            py = g4[1:2]
-            pz = g4[2:3]
-            tx = R00 * px + R01 * py + R02 * pz + t0
-            ty = R10 * px + R11 * py + R12 * pz + t1
-            tz = R20 * px + R21 * py + R22 * pz + t2
-            safe_z = jnp.where(jnp.abs(tz) > 1e-12, tz, 1e-12)
-            iz = 1.0 / safe_z
-            u = tx * fx * iz + cx
-            v = ty * fy * iz + cy_
-            valid = (J8[7:8, :] > 0.5) & (tz > 0)
-
-            if bilinear:
-                c0 = jnp.floor(u)
-                r0 = jnp.floor(v)
-                fc = u - c0
-                fr = v - r0
-                inb = (u >= 0) & (u < W) & (v >= 0) & (v < H)
-            else:
-                c0 = jnp.round(u)
-                r0 = jnp.round(v)
-                inb = (c0 >= 0) & (c0 <= W - 1) & (r0 >= 0) & (r0 <= H - 1)
-            valid = valid & inb
-
-            # int32 mask compares — see ops/fused.py _linearize_gram
-            c_lo = jnp.clip(c0, 0, W - 1).astype(jnp.int32)
-            iota_w = jax.lax.broadcasted_iota(jnp.int32, (W, NT), 0)
-            if bilinear:
-                c_hi = jnp.clip(c0 + 1, 0, W - 1).astype(jnp.int32)
-                colw = jnp.where(iota_w == c_lo, 1.0 - fc, 0.0) + jnp.where(
-                    iota_w == c_hi, fc, 0.0
-                )
-            else:
-                # one-hot built at the dot's operand precision (bf16-exact;
-                # skips a (W, NT) cast in mixed_col_dot — see ops/fused.py)
-                colw_dtype = (
-                    jnp.float32 if mix_mode == "f32" else jnp.bfloat16
-                )
-                colw = (iota_w == c_lo).astype(colw_dtype)
-
-            r_lo = jnp.clip(r0, 0, H - 1).astype(jnp.int32)
-            r_hi = (
-                jnp.clip(r0 + 1, 0, H - 1).astype(jnp.int32)
-                if bilinear else r_lo
-            )
-            tile_rows = max(1, NT // W)
-            BAND = 32 if (H > 48 and tile_rows * 2 <= 32) else H
-            if BAND < H:
-                rmin = jnp.min(jnp.where(valid, r_lo, jnp.int32(H)))
-                # aligned start clamped against the PADDED target height
-                # (ops/fused.py _pad_channel_rows rationale: clamping
-                # against unpadded H made the last H % 8 rows unreachable)
-                HP = -(-H // 8) * 8
-                band = jnp.clip(rmin, 0, HP - BAND)
-                band = (band // 8) * 8
-                band = pl.multiple_of(band, 8)
-                in_band = (r_lo >= band) & (r_hi <= band + (BAND - 1))
-                # observability: pixels the band drops this iteration
-                # (ops/fused.py band_masked; surfaced so the production
-                # band_fallback gate covers the IC backend too)
-                n_masked = jnp.sum(jnp.where(valid & ~in_band, 1.0, 0.0))
-                valid = valid & in_band
-                r_lo_loc = r_lo - band
-                r_hi_loc = r_hi - band
-            else:
-                band = 0
-                n_masked = jnp.float32(0.0)
-                r_lo_loc = r_lo
-                r_hi_loc = r_hi
-            iota_h = jax.lax.broadcasted_iota(jnp.int32, (BAND, NT), 0)
-            if bilinear:
-                roww = jnp.where(iota_h == r_lo_loc, 1.0 - fr, 0.0) + jnp.where(
-                    iota_h == r_hi_loc, fr, 0.0
-                )
-            else:
-                roww = jnp.where(iota_h == r_lo_loc, 1.0, 0.0)
-
-            block = (
-                t_i_ref[pl.ds(band, BAND), :] if BAND < H
-                else t_i_ref[0:H, :]
-            )
-            # the shared sampling primitive keeps this kernel's numerics in
-            # lockstep with ops/fused.py (see mixed_col_dot docstring)
-            C = mixed_col_dot(block, colw, mix_mode, bilinear)
-            i1w = jnp.sum(C * roww, axis=0, keepdims=True)  # (1, NT)
-
-            validf = valid.astype(jnp.float32)
-            r = (i1w - J8[6:7, :]) * validf  # residual at valid pixels
-            g_part = jax.lax.dot_general(
-                J8, r, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # (8, 1)
-            rv = jnp.concatenate([r, validf], axis=0)  # (2, NT)
-            m2 = jax.lax.dot_general(
-                rv, rv, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            return (
-                g_acc + g_part, cost_acc + m2[0, 0], nv_acc + m2[1, 1],
-                nm_acc + n_masked,
-            )
-
-        init = (
-            jnp.zeros((8, 1), jnp.float32), jnp.float32(0), jnp.float32(0),
-            jnp.float32(0),
-        )
-        if n_tiles == 1:
-            return tile(0, init)
-        return jax.lax.fori_loop(0, n_tiles, tile, init)
-
-    def L_get(i, j):
-        return L_ref[0, i * 6 + j]
-
-    # the factor is constant for the whole level: reciprocals hoisted out
-    # of the iteration loop (scalar divides are multi-cycle)
-    inv_diag = [1.0 / L_get(i, i) for i in range(6)]
-
-    def cond(carry):
-        it, gnorm = carry[12], carry[13]
-        return (it < max_iterations) & (gnorm >= min_gradient_norm)
-
-    def body(carry):
-        R = carry[:9]
-        t = carry[9:12]
-        g, cost, nvalid, nmasked = level_pass(R, t)
-        gs = [g[i, 0] for i in range(6)]
-        delta = _tri_solve(L_get, gs, inv_diag)
-        finite = jnp.isfinite(delta[0])
-        for k in range(1, 6):
-            finite = finite & jnp.isfinite(delta[k])
-        newR, newt = _compose_inverse_update(R, t, delta, lambda_step)
-        R_out = tuple(jnp.where(finite, n, o) for n, o in zip(newR, R))
-        t_out = tuple(jnp.where(finite, n, o) for n, o in zip(newt, t))
-        gnorm = jnp.sqrt(sum(x * x for x in gs))
-        return R_out + t_out + (
-            carry[12] + 1.0, gnorm, cost, nvalid,
-            jnp.maximum(carry[16], nmasked),  # max over iterations
-        )
-
-    init = tuple(state_ref[0, k] for k in range(12)) + (
-        jnp.float32(0), jnp.float32(jnp.inf), jnp.float32(0), jnp.float32(0),
-        jnp.float32(0),
-    )
-    final = jax.lax.while_loop(cond, body, init)
-    for k in range(12):
-        state_out_ref[0, k] = final[k]
-    for k in range(12, 16):
-        state_out_ref[0, k] = jnp.float32(0)
-    diag_out_ref[0, 0] = final[12]
-    diag_out_ref[0, 1] = jnp.where(jnp.isfinite(final[13]), final[13], 0.0)
-    diag_out_ref[0, 2] = final[14]
-    diag_out_ref[0, 3] = final[15]
-    diag_out_ref[0, 4] = final[16]
-    for k in range(5, 8):
-        diag_out_ref[0, k] = jnp.float32(0)
-
-
 def ic_gn_level(
-    T: jax.Array,  # (4, 4) current pose estimate
-    source_depth: jax.Array,  # (H, W)
-    J8: jax.Array,  # (8, N) from ic_precompute
-    L: jax.Array,  # (6, 6)
-    target_intensity: jax.Array,  # (H, W)
-    intr: Intrinsics,
-    max_iterations: int,
-    min_gradient_norm: float,
-    lambda_step: float,
-    sampling: str = "nearest",
-    interpret: bool = False,
-    mix_mode: str = "f32",
-):
-    """Whole IC level in one pallas call. Returns (T', iterations, gnorm,
-    cost, num_valid, band_masked)."""
-    H, W = source_depth.shape
-    NP, NT = _pick_tile_pixels(H, W)
-    kernel = functools.partial(
-        _ic_gn_kernel, H=H, W=W, NT=NT, NP=NP,
-        bilinear=(sampling == "bilinear"),
-        max_iterations=float(max_iterations),
-        min_gradient_norm=float(min_gradient_norm),
-        lambda_step=float(lambda_step),
-        mix_mode=mix_mode,
-    )
-    state = jnp.concatenate(
-        [T[:3, :3].reshape(9), T[:3, 3], jnp.zeros(4, T.dtype)]
-    ).astype(jnp.float32).reshape(1, 16)
-    if L.shape == (1, 36):  # already packed (ic_precompute_pallas output)
-        Lrow = L
-    else:
-        Lrow = jnp.zeros((1, 36), jnp.float32).at[0].set(
-            L.astype(jnp.float32).reshape(36)
-        )
-    const = jnp.stack(
-        [
-            jnp.float32(intr.fx), jnp.float32(intr.fy),
-            jnp.float32(intr.cx), jnp.float32(intr.cy),
-            jnp.float32(0), jnp.float32(0), jnp.float32(0), jnp.float32(0),
-        ]
-    ).reshape(1, 8)
-    # hoisted geometry without the valid_depth row (J8 row 7 already
-    # carries the depth-range mask from ic_precompute)
-    geom = pack_geometry(
-        source_depth, intr, 0.0, float("inf"), NP, include_valid=False
-    )
-    J8p = (
-        J8 if J8.shape[1] == NP
-        else jnp.pad(J8, ((0, 0), (0, NP - J8.shape[1])))
-    )
-    state_out, diag = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3
-        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, 16), jnp.float32),
-            jax.ShapeDtypeStruct((1, 8), jnp.float32),
-        ),
-        interpret=interpret,
-    )(state, const, Lrow, geom, J8p, _pad_rows8(target_intensity))
-    Tn = jnp.eye(4, dtype=jnp.float32)
-    Tn = Tn.at[:3, :3].set(state_out[0, :9].reshape(3, 3))
-    Tn = Tn.at[:3, 3].set(state_out[0, 9:12])
-    return (
-        Tn,
-        diag[0, 0].astype(jnp.int32),
-        diag[0, 1],
-        diag[0, 2],
-        diag[0, 3],
-        diag[0, 4],
-    )
-
-
-def ic_gn_level_xla(
     T: jax.Array,
     source_depth: jax.Array,
     J8: jax.Array,
@@ -433,7 +92,8 @@ def ic_gn_level_xla(
     lambda_step: float,
     sampling: str = "nearest",
 ):
-    """Pure-XLA IC level (CPU fallback + correctness oracle for the kernel)."""
+    """One IC Gauss-Newton level. Returns (T', iterations, gnorm, cost,
+    num_valid)."""
     H, W = source_depth.shape
     N = H * W
     Jrows = J8[:6]  # (6, N)
@@ -456,8 +116,6 @@ def ic_gn_level_xla(
         safe_z = jnp.where(jnp.abs(tz) > 1e-12, tz, 1e-12)
         u = tx * intr.fx / safe_z + intr.cx
         v = ty * intr.fy / safe_z + intr.cy
-        from phovo_tpu.ops import warp as warp_ops
-
         sample = (
             warp_ops.sample_bilinear if sampling == "bilinear"
             else warp_ops.sample_nearest
@@ -469,8 +127,6 @@ def ic_gn_level_xla(
         cost = jnp.sum(r * r)
         nvalid = jnp.sum(valid.astype(jnp.float32))
         return g, cost, nvalid
-
-    from phovo_tpu.ops import se3
 
     def cond(carry):
         _, it, gnorm, _, _ = carry
@@ -490,154 +146,4 @@ def ic_gn_level_xla(
         jnp.float32(0), jnp.float32(0),
     )
     T, it, gnorm, cost, nvalid = jax.lax.while_loop(cond, body, carry)
-    # trailing 0: the XLA path samples full-height (never band-masks)
-    return (
-        T, it, jnp.where(jnp.isfinite(gnorm), gnorm, 0.0), cost, nvalid,
-        jnp.float32(0.0),
-    )
-
-
-def _chol_factor(A):
-    """Scalar 6x6 Cholesky: A is [[scalar]*6]*6, returns lower L as lists."""
-    L = [[None] * 6 for _ in range(6)]
-    for i in range(6):
-        acc = A[i][i]
-        for k in range(i):
-            acc = acc - L[i][k] * L[i][k]
-        L[i][i] = jnp.sqrt(jnp.maximum(acc, 1e-30))
-        inv_d = 1.0 / L[i][i]
-        for j in range(i + 1, 6):
-            acc = A[j][i]
-            for k in range(i):
-                acc = acc - L[j][k] * L[i][k]
-            L[j][i] = acc * inv_d
-    return L
-
-
-def _ic_precompute_kernel(
-    const_ref, i0_ref, d0_ref, gx0_ref, gy0_ref,
-    J8_ref, L_ref,
-    *, H, W, NT, NP,
-):
-    """One-pass build of the IC level constants: the packed Jacobian rows
-    J8 = [J0..J5; I0; valid] at the IDENTITY warp (no sampling — the source
-    gradient is read at the source pixel), the Gram J0^T J0, and its scalar
-    Cholesky factor. Replaces an XLA precompute that materialized the
-    (H, W, 2, 6) pixel Jacobian and cost ~1.8x the whole IC solve."""
-    fx = const_ref[0, 0]
-    fy = const_ref[0, 1]
-    cx = const_ref[0, 2]
-    cy_ = const_ref[0, 3]
-    minD = const_ref[0, 4]
-    maxD = const_ref[0, 5]
-
-    n_tiles = NP // NT
-
-    def tile(step, gram_acc):
-        off = pl.multiple_of(step * NT, 128)
-        if n_tiles == 1:
-            d0 = d0_ref[:]
-            i0 = i0_ref[:]
-            gx = gx0_ref[:]
-            gy = gy0_ref[:]
-        else:
-            d0 = d0_ref[:, pl.ds(off, NT)]
-            i0 = i0_ref[:, pl.ds(off, NT)]
-            gx = gx0_ref[:, pl.ds(off, NT)]
-            gy = gy0_ref[:, pl.ds(off, NT)]
-        pidx = jax.lax.broadcasted_iota(jnp.int32, (1, NT), 1) + step * NT
-        rows = (pidx // W).astype(jnp.float32)
-        cols = (pidx % W).astype(jnp.float32)
-        pz = d0
-        px = (cols - cx) * pz / fx
-        py = (rows - cy_) * pz / fy
-        valid = (d0 > minD) & (d0 < maxD)
-        validf = valid.astype(jnp.float32)
-        safe_z = jnp.where(pz > 1e-12, pz, 1e-12)
-        iz = 1.0 / safe_z
-        a0 = fx * iz
-        a2 = -fx * px * iz * iz
-        b1 = fy * iz
-        b2 = -fy * py * iz * iz
-        # rigid columns at zero angles (ZYX):
-        #   dR/dyaw|0 @ p = (-py, px, 0); dR/dpitch|0 @ p = (pz, 0, -px);
-        #   dR/droll|0 @ p = (0, -pz, py)
-        rows8 = [
-            gx * a0 * validf,
-            gy * b1 * validf,
-            (gx * a2 + gy * b2) * validf,
-            (gx * (a0 * -py) + gy * (b1 * px)) * validf,
-            (gx * (a0 * pz + a2 * -px) + gy * (b2 * -px)) * validf,
-            (gx * (a2 * py) + gy * (b1 * -pz + b2 * py)) * validf,
-            i0,
-            validf,
-        ]
-        G = jnp.concatenate(rows8, axis=0)  # (8, NT)
-        if n_tiles == 1:
-            J8_ref[:] = G
-        else:
-            J8_ref[:, pl.ds(off, NT)] = G
-        gram = jax.lax.dot_general(
-            G, G, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        return gram_acc + gram
-
-    if n_tiles == 1:
-        gram = tile(0, jnp.zeros((8, 8), jnp.float32))
-    else:
-        gram = jax.lax.fori_loop(
-            0, n_tiles, tile, jnp.zeros((8, 8), jnp.float32)
-        )
-    A = [[gram[i, j] + (1e-8 if i == j else 0.0) for j in range(6)]
-         for i in range(6)]
-    L = _chol_factor(A)
-    for i in range(6):
-        for j in range(6):
-            L_ref[0, i * 6 + j] = (
-                L[i][j] if j <= i else jnp.float32(0.0)
-            )
-
-
-def ic_precompute_pallas(
-    source_intensity: jax.Array,
-    source_depth: jax.Array,
-    source_grad_x: jax.Array,
-    source_grad_y: jax.Array,
-    intr: Intrinsics,
-    min_depth: float,
-    max_depth: float,
-    interpret: bool = False,
-):
-    """Fused equivalent of ic_precompute; returns (J8 (8, NP) padded,
-    L_row (1, 36))."""
-    H, W = source_intensity.shape
-    NP, NT = _pick_tile_pixels(H, W)
-    kernel = functools.partial(_ic_precompute_kernel, H=H, W=W, NT=NT, NP=NP)
-    const = jnp.stack(
-        [
-            jnp.float32(intr.fx), jnp.float32(intr.fy),
-            jnp.float32(intr.cx), jnp.float32(intr.cy),
-            jnp.float32(min_depth), jnp.float32(max_depth),
-            jnp.float32(0), jnp.float32(0),
-        ]
-    ).reshape(1, 8)
-    flat = lambda a: _pad_flat(a.reshape(1, H * W), NP)
-    J8, Lrow = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 4,
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((8, NP), jnp.float32),
-            jax.ShapeDtypeStruct((1, 36), jnp.float32),
-        ),
-        interpret=interpret,
-    )(
-        const, flat(source_intensity), flat(source_depth),
-        flat(source_grad_x), flat(source_grad_y),
-    )
-    return J8, Lrow
+    return T, it, jnp.where(jnp.isfinite(gnorm), gnorm, 0.0), cost, nvalid

@@ -1,4 +1,4 @@
-"""Image pyramids, Gaussian blur, and Scharr gradients as MXU matmuls.
+"""Image pyramids, Gaussian blur, and Scharr gradients as banded matmuls.
 
 Reference behavior being matched (not translated):
   - BuildPyramid (CPhotoconsistencyOdometryAnalytic.h:115-163): level k is the
@@ -10,11 +10,11 @@ Reference behavior being matched (not translated):
   - Depth-gradient pyramids (…BiObjective.h:213-239): depth normalized by
     1/maxDepth before Scharr.
 
-TPU-first design: every one of these linear operations is expressed as a pair
+Design: every one of these linear operations is expressed as a pair
 of small banded matrices applied as  A_rows @ image @ A_cols^T.  The matrices
 are built once per (shape, params) on the host (numpy), cached, and closed
 over by the jitted function, so the whole pyramid build compiles to a chain of
-MXU matmuls — no gathers, no dynamic shapes. Bilinear resize, reflect-101
+small matmuls — no gathers, no dynamic shapes. Bilinear resize, reflect-101
 borders, and Scharr taps are all exactly representable this way, so results
 match OpenCV to float tolerance (verified in tests/test_pyramid.py against
 cv2 itself).

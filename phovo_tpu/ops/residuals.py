@@ -17,7 +17,7 @@ Design decisions vs the reference (deliberate, documented divergences):
      scatters the residual at the *transformed* integer pixel index
      (…Analytic.h:358) while storing the Jacobian at i (…Analytic.h:351-356),
      so its normal equations pair J_i with r_sigma(i). The gather form is the
-     mathematically consistent Gauss-Newton and is scatter-free (TPU-friendly).
+     mathematically consistent Gauss-Newton and is scatter-free.
   2. Correct chain rule: the reference Analytic backend's d/dz,yaw,pitch,roll
      terms contain an algebraic slip (temp11 = cos(pitch)*cos(yaw) + x at
      …Analytic.h:253 multiplies px, injecting px*x instead of x). We use the
@@ -31,8 +31,8 @@ Design decisions vs the reference (deliberate, documented divergences):
      Jacobian at state == 0.
 
 All functions are vectorized over the whole pixel field: the per-pixel loops
-of the reference become fused elementwise VPU work + two XLA gathers + one
-(N,6)^T (N,6) MXU reduction.
+of the reference become fused elementwise work + XLA gathers + one
+(N,6)^T (N,6) reduction.
 """
 
 from __future__ import annotations
@@ -54,9 +54,6 @@ class NormalEquations(NamedTuple):
     Jtr: jax.Array  # (6,)
     cost: jax.Array  # scalar: sum of squared residuals
     num_valid: jax.Array  # scalar: number of contributing pixels
-    # pixels dropped by the fused kernel's banded sampling window this
-    # linearization (0 for the exact XLA paths, which have no band)
-    band_masked: jax.Array | float = 0.0
 
 
 def rigid_jacobian(points: jax.Array, state: jax.Array) -> jax.Array:
@@ -260,7 +257,7 @@ def normal_equations(
 ) -> NormalEquations:
     """Reduce a residual field to Gauss-Newton normal equations.
 
-    J: (..., 6), residual/valid broadcastable to J[..., 0]. One MXU matmul:
+    J: (..., 6), residual/valid broadcastable to J[..., 0]. One matmul:
     JtJ = J^T J over all leading axes (invalid rows already zeroed).
 
     With a robust loss, every row is scaled by sqrt(w(r)) (ops/robust.py),

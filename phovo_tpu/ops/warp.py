@@ -8,8 +8,8 @@ Two formulations:
   - `gather_warp` / `sample_*`: sample the target image AT the projected
     coordinates of each source pixel. This is the formulation the residual
     kernels use (mathematically consistent with the Jacobians — see
-    ops/residuals.py docstring) and is gather-based, which maps far better
-    onto TPU than scatter.
+    ops/residuals.py docstring) and is gather-based: no write conflicts,
+    unlike a scatter.
 """
 
 from __future__ import annotations

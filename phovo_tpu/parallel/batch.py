@@ -1,16 +1,16 @@
 """Data-parallel batched alignment over a device mesh.
 
-The reference aligns one pair at a time on one core. On TPU the same math
+The reference aligns one pair at a time on one core. Here the same math
 vmaps over a batch of frame pairs (sliding-window odometry, multi-sequence
 serving, relocalization candidate scoring) and shards the batch over the
-mesh "data" axis — GSPMD partitions every per-pair computation with no
-cross-device communication at all (each pair lives on one device).
+mesh "data" axis — each pair lives on one device, so the per-pair work
+needs no cross-device communication.
 
-Note the solver runs the same iteration schedule for every pair in the batch
-(lax.while_loop over a batched carry: an iteration executes until EVERY
-pair's termination criterion fires; converged pairs keep taking harmless
-steps). Identical results to serial alignment up to that schedule difference;
-tests/test_parallel.py checks agreement against the serial path.
+A vmapped solver keeps each pair's own schedule: lax.while_loop over a
+batched carry runs until EVERY pair's termination criterion fires, and a
+pair that has stopped keeps its state (the batching rule selects the old
+carry for it). Results match serial alignment up to the reassociation of
+the batched reductions; tests/test_parallel.py checks the agreement.
 """
 
 from __future__ import annotations
@@ -32,7 +32,13 @@ from phovo_tpu.parallel.mesh import DATA_AXIS
 from phovo_tpu.utils.config import PhovoConfig
 
 
-@functools.partial(jax.jit, static_argnames=("config", "use_fused"))
+def _intr_axes(intr: Intrinsics) -> Intrinsics:
+    """vmap in_axes for intrinsics: scalars are shared, (B,) vectors are
+    per item."""
+    return Intrinsics(*(0 if jnp.ndim(v) > 0 else None for v in intr))
+
+
+@functools.partial(jax.jit, static_argnames=("config",))
 def align_batch(
     source_intensity: jax.Array,  # (B, H, W)
     source_depth: jax.Array,
@@ -41,21 +47,17 @@ def align_batch(
     intr: Intrinsics,  # scalars (shared) or vectors of shape (B,)
     init_states: jax.Array,  # (B, 6)
     config: PhovoConfig,
-    use_fused: bool = False,
 ):
     """vmapped multi-level alignment; returns batched AlignmentResult."""
-    in_axes_intr = Intrinsics(
-        *(0 if jnp.ndim(v) > 0 else None for v in intr)
-    )
     return jax.vmap(
         lambda si, sd, ti, td, it, s0: align_analytic(
-            si, sd, ti, td, it, s0, config, use_fused
+            si, sd, ti, td, it, s0, config
         ),
-        in_axes=(0, 0, 0, 0, in_axes_intr, 0),
+        in_axes=(0, 0, 0, 0, _intr_axes(intr), 0),
     )(source_intensity, source_depth, target_intensity, target_depth, intr, init_states)
 
 
-def make_data_parallel_aligner(mesh: Mesh, config: PhovoConfig, use_fused: bool = False):
+def make_data_parallel_aligner(mesh: Mesh, config: PhovoConfig):
     """Returns align(batch...) with the batch dimension sharded over the
     mesh 'data' axis. Any (B, H, W) batch is accepted: a B not divisible by
     the data-axis size is padded by repeating the last pair (each padded
@@ -72,7 +74,7 @@ def make_data_parallel_aligner(mesh: Mesh, config: PhovoConfig, use_fused: bool 
         static_argnames=(),
     )
     def align(si, sd, ti, td, intr, init_states):
-        return align_batch(si, sd, ti, td, intr, init_states, config, use_fused)
+        return align_batch(si, sd, ti, td, intr, init_states, config)
 
     def align_any_batch(si, sd, ti, td, intr, init_states):
         B = si.shape[0]
@@ -92,199 +94,29 @@ def make_data_parallel_aligner(mesh: Mesh, config: PhovoConfig, use_fused: bool 
     return align_any_batch
 
 
-@functools.partial(jax.jit, static_argnames=("config", "use_fused", "warm_start"))
+@functools.partial(jax.jit, static_argnames=("config", "warm_start"))
 def align_sequences(
     intensities: jax.Array,  # (S, T, H, W) — S independent camera streams
     depths: jax.Array,  # (S, T, H, W)
     intr: Intrinsics,  # scalars (shared rig) or (S,) vectors (per camera)
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
 ):
     """Align S independent frame sequences in one device program.
 
-    Each sequence runs `align_sequence` (lax.scan over its T-1 consecutive
-    pairs, models/analytic.py); vmap lifts that over the sequence axis, so
-    the per-pair normal-equation work is batched across streams at every
-    scan step. Returns (AlignmentResult with leading dims (S, T-1),
-    global poses (S, T-1, 4, 4)) — poses integrated on device with the
-    O(log T) associative-scan prefix product (ops/se3.py
-    integrate_trajectory), replacing the reference VO app's host-side
-    running pose ∘= Rt⁻¹ loop (PhotoconsistencyVisualOdometry.cpp:233-234).
+    Each sequence runs `align_sequence` (models/analytic.py); vmap lifts it
+    over the stream axis. Zero-init pairs are independent across streams
+    too, so the S*(T-1) pairs of the fleet advance level by level as one
+    batch. Returns (AlignmentResult with leading dims (S, T-1), global
+    poses (S, T-1, 4, 4)) — poses integrated on device with the O(log T)
+    associative-scan prefix product (ops/se3.py integrate_trajectory),
+    replacing the reference VO app's host-side running pose ∘= Rt⁻¹ loop
+    (PhotoconsistencyVisualOdometry.cpp:233-234).
     """
-    from phovo_tpu.models.analytic import levelmajor_eligible
-
-    # level-major flattens streams into one batch — correct and fastest on
-    # one device. On a multi-device process this jitted entry (no mesh in
-    # scope) takes the vmap path, which GSPMD keeps device-local; callers
-    # on a mesh who want the level-major kernels per device should use
-    # align_sequences_levelmajor_sharded / the make_*_server factories,
-    # whose shard_map does the flatten inside each shard.
-    shared_rig = all(jnp.ndim(v) == 0 for v in intr)
-    if shared_rig and jax.device_count() == 1 and levelmajor_eligible(
-        config, intensities.shape[2:], use_fused, warm_start
-    ):
-        # zero-init pairs are independent ACROSS streams too: flatten all
-        # S*(T-1) pairs into one level-major batch (the whole fleet's
-        # coarsest levels advance in one sublane-batched kernel) instead of
-        # vmapping per-stream scans — the serving-throughput fast path
-        res = align_sequences_levelmajor(intensities, depths, intr, config)
-    else:
-        in_axes_intr = Intrinsics(
-            *(0 if jnp.ndim(v) > 0 else None for v in intr)
-        )
-        res = jax.vmap(
-            lambda I, D, it: align_sequence(
-                I, D, it, config, use_fused, warm_start
-            ),
-            in_axes=(0, 0, in_axes_intr),
-        )(intensities, depths, intr)
-    poses = jax.vmap(se3.integrate_trajectory)(res.state)
-    return res, poses
-
-
-def align_sequences_levelmajor(
-    intensities: jax.Array,  # (S, T, H, W)
-    depths: jax.Array,  # (S, T, H, W)
-    intr: Intrinsics,  # scalars (shared rig)
-    config: PhovoConfig,
-    interpret: bool = False,
-):
-    """All S streams' T-1 pairs as ONE level-major batch.
-
-    Under zero-init semantics every pair of every stream is independent, so
-    the whole fleet's S*(T-1) alignments advance level-by-level through the
-    sublane-batched kernel (models/analytic.align_pairs_levelmajor) — the
-    per-iteration overhead amortizes across the full fleet, not just one
-    stream's chunk.  Per-frame prep runs once per frame (each interior
-    frame serves as a pair's target and the next pair's source).
-
-    Returns a batched AlignmentResult with leading dims (S, T-1).
-    """
-    from phovo_tpu.models.analytic import (
-        align_pairs_levelmajor,
-        prep_frame_analytic,
-    )
-    from phovo_tpu.models.base import device_unit_intensity
-
-    S, T = intensities.shape[:2]
-    shape = intensities.shape[2:]
-    flat_i = device_unit_intensity(intensities).astype(jnp.float32).reshape(
-        S * T, *shape
-    )
-    flat_d = jnp.asarray(depths, jnp.float32).reshape(S * T, *shape)
-    prep = jax.vmap(
-        lambda i, d: prep_frame_analytic(i, d, intr, config, colsplit=True)
-    )(flat_i, flat_d)
-    B = S * (T - 1)
-    prep_pairs = {}
-    for level, (i0f, geom, t_all) in prep.items():
-        i0s = i0f.reshape(S, T, *i0f.shape[1:])[:, :-1, 0, :].reshape(B, -1)
-        geoms = geom.reshape(S, T, *geom.shape[1:])[:, :-1].reshape(
-            B, *geom.shape[1:]
-        )
-        ts = t_all.reshape(S, T, *t_all.shape[1:])[:, 1:].reshape(
-            B, *t_all.shape[1:]
-        )
-        prep_pairs[level] = (i0s, geoms, ts)
-    res = align_pairs_levelmajor(
-        prep_pairs, shape, intr, config, interpret, colsplit=True
-    )
-    return jax.tree.map(
-        lambda a: a.reshape(S, T - 1, *a.shape[1:]), res
-    )
-
-
-def align_sequences_levelmajor_sharded(
-    intensities: jax.Array,  # (S, T, H, W)
-    depths: jax.Array,  # (S, T, H, W)
-    intr: Intrinsics,  # scalars (shared rig)
-    config: PhovoConfig,
-    mesh: Mesh,
-    interpret: bool = False,
-):
-    """align_sequences_levelmajor on a MULTI-DEVICE mesh: streams sharded
-    over the 'data' axis, each device flattening ITS k = S/n_data streams'
-    pairs into one local level-major batch (shard_map — the flatten stays
-    device-local, so there is zero cross-device traffic, exactly like the
-    vmap path, but each device's pairs still advance through the
-    sublane-batched kernel).
-
-    This lifts the r4 `jax.device_count() == 1` gate on the serving
-    flatten (VERDICT r4 weak #5): multi-device serving no longer silently
-    takes the slow scan path. S must be divisible by the data-axis size.
-    Also the dryrun's Pallas-under-shard_map case (interpret=True on the
-    virtual CPU mesh)."""
-    from jax.experimental.shard_map import shard_map
-
-    n_data = mesh.shape[DATA_AXIS]
-    if intensities.shape[0] % n_data:
-        raise ValueError(
-            f"S={intensities.shape[0]} not divisible by data axis {n_data}"
-        )
-
-    spec = P(DATA_AXIS, None, None, None)
-
-    def local(I, D):
-        return align_sequences_levelmajor(I, D, intr, config, interpret)
-
-    fn = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(spec, spec),
-        out_specs=P(DATA_AXIS),
-        check_rep=False,
-    )
-    return fn(intensities, depths)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("config", "warm_start", "interpret")
-)
-def align_sequences_multi(
-    intensities: jax.Array,  # (S, T, H, W) — S independent camera streams
-    depths: jax.Array,  # (S, T, H, W)
-    intr: Intrinsics,  # scalars (shared rig — the multi kernel requirement)
-    config: PhovoConfig,
-    warm_start: bool = False,
-    interpret: bool = False,
-):
-    """align_sequences through the MULTI-STREAM kernel: one lax.scan over
-    time, each step advancing all S streams' alignments with ONE
-    fused_gn_level_multi call per level (models/analytic.align_batch_fused)
-    instead of vmap's serializing grid axis.
-
-    This is the serving-throughput shape attacking the serial-iteration
-    ceiling (BASELINE.md: ~3.5k pairs/s however the work arrives): the S
-    per-stream MXU dots issue back-to-back inside one kernel, so the
-    per-iteration launch/VPU overhead is paid once, not S times. Callers
-    must gate on models.analytic.multi_kernel_eligible(config, (H, W), S)
-    and shared scalar intrinsics; fall back to align_sequences otherwise.
-
-    Returns (AlignmentResult with leading dims (S, T-1), global poses
-    (S, T-1, 4, 4)) — identical contract to align_sequences.
-    """
-    from phovo_tpu.models.analytic import align_batch_fused
-
-    S = intensities.shape[0]
-
-    def step(carry, frames):
-        si, sd, ti, td = frames
-        init = carry if warm_start else jnp.zeros((S, 6), jnp.float32)
-        res = align_batch_fused(
-            si, sd, ti, td, intr, init, config, interpret
-        )
-        return res.state, res
-
-    xs = tuple(
-        jnp.swapaxes(a, 0, 1)  # (T-1, S, H, W) so scan walks time
-        for a in (
-            intensities[:, :-1], depths[:, :-1],
-            intensities[:, 1:], depths[:, 1:],
-        )
-    )
-    _, results = jax.lax.scan(step, jnp.zeros((S, 6), jnp.float32), xs)
-    res = jax.tree.map(lambda x: jnp.swapaxes(x, 0, 1), results)
+    res = jax.vmap(
+        lambda I, D, it: align_sequence(I, D, it, config, warm_start),
+        in_axes=(0, 0, _intr_axes(intr)),
+    )(intensities, depths, intr)
     poses = jax.vmap(se3.integrate_trajectory)(res.state)
     return res, poses
 
@@ -292,33 +124,42 @@ def align_sequences_multi(
 def make_multi_sequence_server(
     mesh: Mesh,
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
 ):
     """Multi-camera serving entry: S camera streams sharded over the mesh
-    'data' axis, one alignment scan per stream, zero cross-device
-    communication (each stream lives on one device). This is the production
-    "many cameras per chip/pod" deployment shape: with S = k * n_data
-    streams, every device runs k independent VO scans in parallel.
+    'data' axis, one alignment chain per stream, zero cross-device
+    communication (each stream lives on one device). With S = k * n_data
+    streams, every device aligns k streams.
+
+    Each device runs align_sequences on its own streams under shard_map, so
+    its solver loops stop when its own pairs have converged.
 
     Returns serve(intensities (S,T,H,W), depths, intr) ->
     (AlignmentResult (S, T-1, ...), global poses (S, T-1, 4, 4)).
+    Intrinsics are scalars (shared rig) or (S,) vectors (per camera).
     S must be divisible by the data-axis size.
     """
     seq_sharded = NamedSharding(mesh, P(DATA_AXIS, None, None, None))
+    spec = P(DATA_AXIS, None, None, None)
+
+    def local(intensities, depths, intr):
+        return align_sequences(intensities, depths, intr, config, warm_start)
 
     @functools.partial(jax.jit, in_shardings=(seq_sharded, seq_sharded, None))
     def serve(intensities, depths, intr):
-        return align_sequences(
-            intensities, depths, intr, config, use_fused, warm_start
+        intr_spec = Intrinsics(
+            *(P(DATA_AXIS) if jnp.ndim(v) > 0 else P() for v in intr)
         )
+        return jax.shard_map(
+            local, mesh=mesh, in_specs=(spec, spec, intr_spec),
+            out_specs=P(DATA_AXIS), check_vma=False,
+        )(intensities, depths, intr)
 
     return serve
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("config", "use_fused", "warm_start", "depth_scale"),
+    jax.jit, static_argnames=("config", "warm_start", "depth_scale"),
 )
 def serve_sequences_chunk(
     carry_intensity: jax.Array,  # (S, H, W) last frame of each stream's prev chunk
@@ -327,13 +168,13 @@ def serve_sequences_chunk(
     depths: jax.Array,  # (S, B, H, W) metric float32 or raw uint16 counts
     intr: Intrinsics,  # scalars (shared rig) or (S,) vectors
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
     depth_scale: float | None = None,
 ):
     """Streaming multi-camera serving step: one chunk of B frames for each of
     S streams per dispatch (vmap of models/analytic.py align_sequence_chunk
-    over the stream axis).
+    over the stream axis; zero-init chunks of all streams solve as one
+    batch).
 
     Returns (AlignmentResult with leading dims (S, B), chunk-relative poses
     (S, B, 4, 4) — pair k's pose relative to the stream's chunk-start frame,
@@ -342,37 +183,14 @@ def serve_sequences_chunk(
     multiply per chunk-pose: G_k = G_chunk_start @ poses[s, k].
     """
 
-    from phovo_tpu.models.analytic import levelmajor_eligible
-    from phovo_tpu.models.base import chunk_device_prep
-
-    shared_rig = all(jnp.ndim(v) == 0 for v in intr)
-    if shared_rig and jax.device_count() == 1 and levelmajor_eligible(
-        config, intensities.shape[2:], use_fused, warm_start
-    ):
-        # one-device fast path: prepend each stream's carry on device, then
-        # run ALL S*B pairs as one level-major batch (see
-        # align_sequences_levelmajor — zero-init pairs are independent
-        # across streams too). Multi-device serving is NOT gated to the
-        # slow path anymore: make_chunked_sequence_server's shard_map route
-        # runs the level-major flatten per device; this raw jitted entry
-        # (no mesh in scope) keeps the single-device guard only.
-        I, D = jax.vmap(
-            lambda ci, cd, i, d: chunk_device_prep(ci, cd, i, d, depth_scale)
-        )(carry_intensity, carry_depth, intensities, depths)
-        res = align_sequences_levelmajor(I, D, intr, config)
-        new_ci, new_cd = I[:, -1], D[:, -1]
-    else:
-        def one(ci, cd, I, D, it):
-            return align_sequence_chunk(
-                ci, cd, I, D, it, config, use_fused, warm_start, depth_scale
-            )
-
-        in_axes_intr = Intrinsics(
-            *(0 if jnp.ndim(v) > 0 else None for v in intr)
+    def one(ci, cd, I, D, it):
+        return align_sequence_chunk(
+            ci, cd, I, D, it, config, warm_start, depth_scale
         )
-        res, new_ci, new_cd = jax.vmap(
-            one, in_axes=(0, 0, 0, 0, in_axes_intr)
-        )(carry_intensity, carry_depth, intensities, depths, intr)
+
+    res, new_ci, new_cd = jax.vmap(
+        one, in_axes=(0, 0, 0, 0, _intr_axes(intr))
+    )(carry_intensity, carry_depth, intensities, depths, intr)
     poses = jax.vmap(se3.integrate_trajectory)(res.state)
     return res, poses, new_ci, new_cd
 
@@ -380,10 +198,8 @@ def serve_sequences_chunk(
 def make_chunked_sequence_server(
     mesh: Mesh,
     config: PhovoConfig,
-    use_fused: bool = True,
     warm_start: bool = False,
     depth_scale: float | None = None,
-    levelmajor: str = "auto",
 ):
     """Streaming production server: S camera streams sharded over the mesh
     'data' axis, chunked frame ingestion in storage dtype (uint8/uint16 over
@@ -391,69 +207,28 @@ def make_chunked_sequence_server(
     chunk-pose integration. Used by apps/phovo_serve.py. S must be divisible
     by the data-axis size.
 
-    levelmajor: 'auto' routes eligible zero-init shared-rig chunks through
-    the shard_map'd level-major flatten (each device batches ITS streams'
-    pairs through the sublane-batched kernel — multi-device serving no
-    longer falls back to the slow scan, VERDICT r4 weak #5), 'off' forces
-    the vmap scan path, 'interpret' forces the level-major path with
-    interpret-mode kernels (virtual-mesh validation)."""
+    Each device serves its own streams under shard_map, so its solver loops
+    stop when its own pairs have converged. Intrinsics are shared by all
+    streams (scalars)."""
     carry_sh = NamedSharding(mesh, P(DATA_AXIS, None, None))
     chunk_sh = NamedSharding(mesh, P(DATA_AXIS, None, None, None))
-    n_data = mesh.shape[DATA_AXIS]
+    spec3 = P(DATA_AXIS, None, None)
+    spec4 = P(DATA_AXIS, None, None, None)
+
+    def local(ci, cd, I, D, intr):
+        return serve_sequences_chunk(
+            ci, cd, I, D, intr, config, warm_start, depth_scale
+        )
 
     @functools.partial(
         jax.jit, in_shardings=(carry_sh, carry_sh, chunk_sh, chunk_sh, None)
     )
-    def serve_default(carry_i, carry_d, intensities, depths, intr):
-        return serve_sequences_chunk(
-            carry_i, carry_d, intensities, depths, intr,
-            config, use_fused, warm_start, depth_scale,
-        )
-
-    interp = levelmajor == "interpret"
-
-    @functools.partial(
-        jax.jit,
-        in_shardings=(carry_sh, carry_sh, chunk_sh, chunk_sh, None),
-    )
-    def serve_lm(carry_i, carry_d, intensities, depths, intr):
-        from jax.experimental.shard_map import shard_map
-
-        from phovo_tpu.models.base import chunk_device_prep
-
-        def local(ci, cd, I, D, it):
-            Ic, Dc = jax.vmap(
-                lambda a, b, c, d: chunk_device_prep(a, b, c, d, depth_scale)
-            )(ci, cd, I, D)
-            res = align_sequences_levelmajor(Ic, Dc, it, config, interp)
-            poses = jax.vmap(se3.integrate_trajectory)(res.state)
-            return res, poses, Ic[:, -1], Dc[:, -1]
-
-        spec3 = P(DATA_AXIS, None, None)
-        spec4 = P(DATA_AXIS, None, None, None)
-        return shard_map(
+    def serve(carry_i, carry_d, intensities, depths, intr):
+        return jax.shard_map(
             local, mesh=mesh,
             in_specs=(spec3, spec3, spec4, spec4, P()),
             out_specs=P(DATA_AXIS),
-            check_rep=False,
+            check_vma=False,
         )(carry_i, carry_d, intensities, depths, intr)
-
-    def serve(carry_i, carry_d, intensities, depths, intr):
-        from phovo_tpu.models.analytic import levelmajor_eligible
-
-        shared_rig = all(jnp.ndim(v) == 0 for v in intr)
-        if (
-            levelmajor != "off"
-            and shared_rig
-            and intensities.shape[0] % n_data == 0
-            and (
-                interp
-                or levelmajor_eligible(
-                    config, intensities.shape[2:], use_fused, warm_start
-                )
-            )
-        ):
-            return serve_lm(carry_i, carry_d, intensities, depths, intr)
-        return serve_default(carry_i, carry_d, intensities, depths, intr)
 
     return serve

@@ -21,14 +21,14 @@ Landmarks are eliminated by the Schur complement
     S dx_pose = v - W V^{-1} w
     dx_point_j = V_j^{-1} (w_j - sum_i W_{ij}^T dx_pose_i)
 
-TPU decomposition: observations are padded and sharded over the flattened
+Decomposition: observations are padded and sharded over the flattened
 mesh; every device scatter-accumulates its shard's {U, V, W, v, w, cost}
 blocks locally, ONE psum per GN iteration merges them (the only collective),
 and the reduced 6M x 6M solve + landmark back-substitution run replicated —
 M is a keyframe-window count (tens), so the solve is trivial next to the
 O(K) accumulation. W is kept dense (M, P, 6, 3): for window BA
-(M<=64, P<=few thousand) that is a few MB of VMEM-friendly layout and makes
-the Schur contraction three einsums on the MXU instead of ragged per-landmark
+(M<=64, P<=few thousand) that is a few MB of dense layout and makes
+the Schur contraction three dense einsums instead of ragged per-landmark
 gathers.
 
 Conventions match the rest of the framework: pose state s_i is the 6-vector
@@ -52,7 +52,7 @@ from phovo_tpu.ops.camera import Intrinsics
 # schur='auto' memory guard, shared with parallel/photometric_ba.py: the
 # dense-Schur path materializes W (M, P, 6, 3) plus the WVinv intermediate
 # (M, P, 6, 3) — 2 * M * P * 18 f32 values. Dense wins on TIME wherever it
-# fits (tools/ba_scale_bench.py / BASELINE.md crossover table), so the
+# fits (tools/ba_scale_bench.py crossover table), so the
 # budget is purely a memory cap.
 DENSE_W_BUDGET_BYTES = 256e6
 
@@ -415,14 +415,14 @@ def optimize_bundle(
     ~3 px of reprojection error).
 
     schur='dense' materializes W as (M, P, 6, 3) — fastest for small
-    windows (M<=64, P<=few k, the contraction is three MXU einsums).
+    windows (M<=64, P<=few k, the contraction is three dense einsums).
     schur='sparse' never materializes W: the Schur fill runs over the
     same-landmark observation-pair list (build_schur_pairs) with segment
     scatter-adds, memory O(K * mean-track-length) instead of O(M*P) — the
-    map-scale path (50k observations / 10k landmarks on chip).
+    map-scale path (50k observations / 10k landmarks).
     schur='auto' picks dense while the W + WVinv intermediates fit a
     256 MB budget and sparse beyond (measured crossover: dense wins on
-    time wherever it fits — tools/ba_scale_bench.py / BASELINE.md —
+    time wherever it fits — tools/ba_scale_bench.py —
     so the budget is purely a memory guard).
 
     With a mesh, observations are padded to a multiple of the flattened mesh

@@ -1,11 +1,12 @@
 """Multi-host initialization and mesh construction (SURVEY §5).
 
-The reference has no distributed runtime at all. TPU-native equivalent:
-standard JAX multi-controller initialization (one process per host, all
-devices visible globally after `initialize()`), then meshes spanning the
-pod slice. Tracking stays chip-local (each chip aligns its own stream /
-batch shard over ICI-free math); only pose-graph/bundle-adjustment
-reductions cross chips (psum over ICI within a slice, DCN across slices).
+The reference has no distributed runtime at all. Here: standard JAX
+multi-controller initialization (one process per host, all devices
+visible globally after `initialize()`), then meshes spanning every host's
+GPUs. Tracking stays device-local (each GPU aligns its own streams /
+batch shard with no communication); only pose-graph/bundle-adjustment
+reductions cross devices (psum over NVLink within a host, the network
+across hosts).
 
 On a single host this degrades to a no-op initialize + local mesh, so the
 same program runs everywhere (the driver's dryrun exercises it with
@@ -26,8 +27,8 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed when running multi-process.
 
-    With no arguments, relies on the cluster environment (TPU pod metadata /
-    SLURM / manual env vars) exactly like jax.distributed.initialize; a
+    With no arguments, relies on the cluster environment (SLURM /
+    manual env vars) exactly like jax.distributed.initialize; a
     single-process run (num_processes in (None, 1) and no coordinator)
     skips initialization entirely.
     """

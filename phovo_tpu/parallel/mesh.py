@@ -1,7 +1,7 @@
 """Device-mesh construction and sharding helpers.
 
 The reference is single-process/single-thread (SURVEY §2: its only
-parallelism is compile-time-disabled OpenMP over pixel rows). The TPU-native
+parallelism is compile-time-disabled OpenMP over pixel rows). The
 parallelism model replacing it:
 
   axis "data"  — frame pairs (batched odometry / multi-sequence serving);
@@ -10,10 +10,11 @@ parallelism model replacing it:
                  reduction, the analog of the reference's OpenMP
                  row-parallelism); the SP axis. Collectives: one psum of
                  {JtJ (21 unique), Jtr (6), cost, count} per GN iteration —
-                 a few hundred bytes over ICI.
+                 a few hundred bytes (NVLink between the GPUs of a host).
 
 Pose-graph optimization shards constraints over the flattened mesh
-(parallel/pose_graph.py).
+(parallel/pose_graph.py). The GPUs of a host are joined all to all, so the
+mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -316,7 +316,7 @@ def _optimize_photometric_jit(
 ):
     """Jitted core with the window as an ARGUMENT: a closure-captured window
     would bake the keyframe IMAGES into the program as constants — every
-    window would then compile (~90 s at VGA) its own program and the
+    window would then compile its own program and the
     persistent cache could never hit. As arguments, all windows of one
     (M, H, W, P, K) shape share a single cached program."""
     return _optimize_photometric_core(
@@ -621,8 +621,7 @@ def refine_photometric_windows(
     The sequential pipeline path (KeyframeVisualOdometry._refine_photometric
     pre-r4) issued one build + optimize dispatch PER window with a blocking
     host fetch between windows — at map scale (228 keyframes -> 33 windows)
-    that was tens of seconds of dispatch/assembly wall against milliseconds
-    of solve time (VERDICT r3 weak #2). Here the whole refinement is a
+    the dispatch/assembly wall dwarfed the solve time (VERDICT r3 weak #2). Here the whole refinement is a
     lax.scan over windows: each step dynamic-slices its window from the
     device-resident keyframe stacks (no image re-upload, contiguous
     windows), builds the BA problem ON DEVICE (landmark backprojection from
@@ -777,8 +776,8 @@ def build_photometric_window(
     # (landmark x (M-1)) observation table, with invalid cells marked by
     # obs_pose = -1 padding (rows contribute exact zeros; unobserved
     # landmarks get the identity floor in the Schur step). Data-dependent
-    # landmark counts would give every window a fresh XLA program — at
-    # ~90 s compile per shape, padding is orders of magnitude cheaper.
+    # landmark counts would give every window a fresh XLA program; a
+    # compile per shape costs far more than the padding.
     Pn = M * grid * grid
     pts = np.zeros((Pn, 3), np.float32)
     ref_i = np.zeros(Pn, np.float32)

@@ -23,18 +23,15 @@ class GNLevelResult(NamedTuple):
     gradient_norm: jax.Array  # ||J^T r|| at the last performed update
     cost: jax.Array  # sum of squared residuals at the last linearization
     num_valid: jax.Array  # valid-pixel count at the last linearization
-    # max pixels dropped by the fused kernel's banded sampling window over
-    # the level's iterations (0 on the exact XLA paths — no band there)
-    band_masked: jax.Array | float = 0.0
 
 
 def solve6(A: jax.Array, b: jax.Array) -> jax.Array:
     """Unrolled 6x6 Cholesky solve (A symmetric positive definite).
 
-    jnp.linalg.solve lowers to a general LU kernel that costs tens of
-    microseconds per call on TPU — material when a frame runs 75 GN
-    iterations. The unrolled scalar DAG (~150 flops) compiles to straight
-    scalar-core code. Non-PD pivots are guarded to keep the result finite
+    jnp.linalg.solve lowers to a general LU solve, a library call per
+    iteration that a frame running 75 GN iterations pays 75 times. The
+    unrolled scalar DAG (~150 flops) fuses into the surrounding kernel and
+    vmaps over a batch of pairs as plain elementwise work. Non-PD pivots are guarded to keep the result finite
     (the caller additionally zero-guards).
     """
     L = [[None] * 6 for _ in range(6)]

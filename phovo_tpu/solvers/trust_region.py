@@ -8,7 +8,7 @@ jit-compilable LM with the same control parameters and Ceres's radius-update
 rule, so the reference's 8 ceres config presets drive it unchanged.
 
 The solver consumes reduced NormalEquations (JtJ, Jtr, cost) from any
-linearizer — the fused Pallas kernel in production (models/autodiff.py), or
+linearizer — the packed-gather linearizer in production (models/autodiff.py), or
 jacfwd of a pure residual (the validation path; `residual_to_linearizer`).
 The step model is classic Levenberg-Marquardt on the normal equations:
     (J^T J + (1/radius) * diag(J^T J)) dx = -J^T r
@@ -36,9 +36,6 @@ class TRLevelResult(NamedTuple):
     gradient_norm: jax.Array  # max-norm of J^T r at termination
     radius: jax.Array  # final trust-region radius
     num_valid: jax.Array  # valid pixels at last accepted linearization
-    # max pixels dropped by the fused kernel's banded sampling window over
-    # the level's iterations (0 on the exact XLA paths — no band there)
-    band_masked: jax.Array | float = 0.0
 
 
 class TROptions(NamedTuple):

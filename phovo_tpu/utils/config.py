@@ -3,10 +3,12 @@
 The reference reads per-level parameter arrays from OpenCV FileStorage YAML
 (ReadConfigurationFile, CPhotoconsistencyOdometryAnalytic.h:581-607 and
 CPhotoconsistencyOdometryCeres.h:526-576) with keys like
-"blurFilterSize (at each level)". Those files start with an OpenCV-specific
-`%YAML:1.0` directive that stock PyYAML rejects, so `load_config` sanitizes
-the header before parsing. All 12 reference presets ship unmodified under
-phovo_tpu/configs/ and parse through this module.
+"blurFilterSize (at each level)", under an OpenCV-specific `%YAML:1.0`
+directive. Config files use a small flat subset of YAML, which
+`parse_flat_yaml` reads with no YAML library: one `key: value` per line,
+scalars or inline `[a, b, ...]` lists, quoted or bare, and `#` comments.
+All 12 reference presets ship under phovo_tpu/configs/ and parse through
+this module.
 
 A "setting schedule" is a list indexed by pyramid level; levels with
 max_num_iterations == 0 are skipped entirely (state passes through), exactly
@@ -16,11 +18,7 @@ like the reference (…Analytic.h:526, config_only_level_0_analytic.yml).
 from __future__ import annotations
 
 import dataclasses
-import io
-import re
 from pathlib import Path
-
-import yaml
 
 from phovo_tpu.solvers.trust_region import TROptions
 
@@ -99,16 +97,6 @@ class PhovoConfig:
     # iteration and robust_delta only seeds it (photometric GN backends)
     robust_loss: str = "none"
     robust_delta: float = 0.1
-    # Sampling-matmul precision inside the fused Pallas kernel (ops/fused.py):
-    # 'bf16x2g' (default) hi/lo bfloat16 split for the residual channels
-    # (intensity/depth, exact to ~2e-6 relative — below the u8/255 image
-    # quantization) with single-pass bf16 gradient channels (Jacobian-only;
-    # ~0.4% relative, which perturbs the GN descent direction without moving
-    # the J^T r = 0 fixed point) — the photometric stack is exactly one
-    # 128-row MXU pass; 'bf16x2' hi/lo split for ALL channels (~2e-6
-    # everywhere); 'f32' exact (validation mode); 'bf16' single pass
-    # (~4x faster dots, sample error ~4e-3). Only affects the fused TPU path.
-    mix_mode: str = "bf16x2g"
 
     def trust_region_options(self, level: int) -> TROptions:
         def get(field, default):
@@ -159,32 +147,82 @@ class PhovoConfig:
             raise ValueError(
                 f"blur_type={self.blur_type!r}; expected 'gaussian' or 'box'"
             )
-        if self.mix_mode not in ("f32", "bf16x2g", "bf16x2", "bf16"):
-            raise ValueError(
-                f"mix_mode={self.mix_mode!r}; expected 'f32', 'bf16x2g', "
-                "'bf16x2' or 'bf16'"
-            )
         return self
 
 
-def _sanitize_opencv_yaml(text: str) -> str:
-    """Strip OpenCV FileStorage quirks so PyYAML can parse the document."""
-    text = re.sub(r"^%YAML:1\.0\s*\n", "", text)
-    text = re.sub(r"^---\s*\n", "", text)
-    return text
+def _strip_comment(line: str) -> str:
+    """Drop a '#' comment that is not inside quotes."""
+    quote = None
+    for k, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#":
+            return line[:k]
+    return line
+
+
+def _parse_scalar(text: str):
+    """A bare or quoted YAML scalar: quoted text stays a string; bare text
+    becomes an int, a float, a bool (true/false/yes/no/on/off), None
+    (null, ~, empty) or, failing those, a string."""
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    low = t.lower()
+    if low in ("", "null", "~"):
+        return None
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    for cast in (int, float):
+        try:
+            return cast(t)
+        except ValueError:
+            pass
+    return t
+
+
+def parse_flat_yaml(text: str) -> dict:
+    """Parse the flat YAML subset config files use (module docstring).
+
+    The OpenCV `%YAML:1.0` directive and `---` document markers are
+    skipped. Anything else outside the subset — indented (nested) lines,
+    block lists, lines without a `key:` — raises ValueError."""
+    out: dict = {}
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip() or line.startswith(("%YAML", "---")):
+            continue
+        key, sep, value = line.partition(":")
+        if not sep or line[0].isspace() or not key.strip():
+            raise ValueError(f"line {n}: unsupported config syntax: {raw!r}")
+        value = value.strip()
+        if value.startswith("["):
+            if not value.endswith("]"):
+                raise ValueError(f"line {n}: unterminated list: {raw!r}")
+            inner = value[1:-1].strip()
+            out[key.strip()] = (
+                [_parse_scalar(v) for v in inner.split(",")] if inner else []
+            )
+        else:
+            out[key.strip()] = _parse_scalar(value)
+    return out
 
 
 def load_config(path: str | Path) -> PhovoConfig:
     """Load a reference-schema (or native-schema) YAML config file."""
-    raw = Path(path).read_text()
-    data = yaml.safe_load(io.StringIO(_sanitize_opencv_yaml(raw)))
-    if not isinstance(data, dict):
-        raise ValueError(f"config {path} did not parse to a mapping")
+    data = parse_flat_yaml(Path(path).read_text())
+    if not data:
+        raise ValueError(f"config {path} holds no settings")
     return config_from_dict(data)
 
 
-# element type for native-schema fields (PyYAML leaves '1e-9'-style floats
-# as strings — YAML 1.1 requires a dot in the mantissa — so coerce explicitly)
+# element type for native-schema fields (quoted numbers such as '1e-4'
+# arrive as strings, so coerce explicitly)
 _FIELD_TYPES = {
     "num_levels": int,
     "blur_filter_sizes": int,
@@ -210,7 +248,6 @@ _FIELD_TYPES = {
     "gradient_at": None,
     "robust_loss": None,
     "robust_delta": float,
-    "mix_mode": None,
 }
 
 

@@ -2,8 +2,8 @@
 
 The reference's only instrumentation is cv::TickMeter wall-clock prints
 (PhotoconsistencyFrameAlignment.cpp:99-102) and per-iteration timing behind a
-compile-time define (CPhotoconsistencyOdometryAnalytic.h:40,512-514). TPU
-equivalents provided here:
+compile-time define (CPhotoconsistencyOdometryAnalytic.h:40,512-514).
+Equivalents provided here:
 
   - `Stopwatch`: host wall-clock with device synchronization — stop(*arrays)
     blocks on the arrays you pass, so measured intervals are real device

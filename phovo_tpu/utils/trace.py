@@ -3,18 +3,17 @@
 The reference optionally displays the |target - warped source| image after
 EVERY Gauss-Newton / trust-region iteration (visualizeIterations config key;
 CPhotoconsistencyOdometryAnalytic.h:551-557, CPhotoconsistencyOdometryCeres.h
-:272-303 VisualizationCallback). There is no display on a TPU pod, and the
+:272-303 VisualizationCallback). There is no display on a headless server, and the
 production solvers run all iterations inside one device program precisely so
 nothing crosses the host boundary — so the equivalent here is a separate
 *diagnostic replay*: a host-driven loop with the same per-level linearization
 and update rule that records the state after every iteration, from which
 per-iteration diff images are rendered to PNG files.
 
-The replay uses the XLA (packed-gather) linearizer path, so it runs on CPU
-and TPU alike; its per-iteration states match the jitted solver's semantics
+The replay uses the same packed-gather linearizer as the solvers, on any
+backend; its per-iteration states match the jitted solver's semantics
 (update performed, then that linearization's gradient norm gates the next
-iteration — solvers/gauss_newton.py) but may differ in the last few ulps from
-the fused Pallas kernel's trajectory. This is a diagnostic, not a production
+iteration — solvers/gauss_newton.py) up to the last few ulps. This is a diagnostic, not a production
 path.
 """
 

@@ -29,8 +29,7 @@ class Trajectory(NamedTuple):
     def pose_matrix(self, i: int) -> np.ndarray:
         # numpy twin: evaluators call this per pose in host loops — the
         # jnp version costs a device dispatch + blocking fetch per call
-        # (minutes of pure RTT evaluating a 1,200-pose trajectory on a
-        # remote-attached chip)
+        # (1,200 round trips for a 1,200-pose trajectory)
         T = np.eye(4)
         T[:3, :3] = se3.quaternion_to_rotation_np(self.quaternions[i])
         T[:3, 3] = self.positions[i]

@@ -4,7 +4,7 @@ The reference verifies alignment by eye: cv::imshow of |target - warped
 source| per frame and optionally per iteration
 (PhotoconsistencyFrameAlignment.cpp:107-112,
 CPhotoconsistencyOdometryAnalytic.h:551-557, visualizeIterations config
-key). There is no display in a TPU pod; the equivalent here renders the
+key). There is no display on a headless server; the equivalent here renders the
 same diagnostics to PNG files (or returns arrays for notebooks).
 """
 

@@ -69,49 +69,32 @@ def test_jacfwd_mode_reports_num_valid(intr, small_pair):
 
 def test_levelmajor_handles_esm_config(intr, small_pair):
     """Regression (ADVICE r4): a ceres-backend sequence with
-    gradient_at='esm' must route through the level-major TR path without
-    the 6-row-geometry/4-row-kernel reshape mismatch (align_autodiff
-    ignores gradient_at — the reference Ceres functor always samples the
-    warped target gradients, sample.h:104-123 — so the level-major prep
-    forces the 'warped' pack) and must match the per-pair scan path."""
+    gradient_at='esm' runs the batched trust-region chain and matches the
+    per-pair scan — align_autodiff ignores gradient_at (the reference Ceres
+    functor always samples the warped target gradients,
+    sample.h:104-123)."""
     import dataclasses
 
     import jax
 
+    from phovo_tpu.models.analytic import prep_frame_analytic
     from phovo_tpu.models.autodiff import (
-        align_sequence_autodiff_levelmajor,
+        align_prepped_tr,
+        align_sequence_autodiff,
     )
-    from phovo_tpu.models.base import sequence_scan
+    from phovo_tpu.models.base import align_chain
 
     I0, D0, I1, D1, _ = small_pair
     cfg = dataclasses.replace(CFG, gradient_at="esm", max_iterations=(4, 6))
     Is = jnp.asarray(np.stack([I0, I1, I0, I1]))
     Ds = jnp.asarray(np.stack([D0, D1, D0, D1]))
-    lm = jax.block_until_ready(
-        align_sequence_autodiff_levelmajor(Is, Ds, intr, cfg, interpret=True)
-    )
+    lm = jax.block_until_ready(align_sequence_autodiff(Is, Ds, intr, cfg))
     scan = jax.block_until_ready(
-        sequence_scan(
-            lambda si, sd, ti, td, init: align_autodiff(
-                si, sd, ti, td, intr, init, cfg, use_fused=False
-            ),
-            Is, Ds, warm_start=False,
+        align_chain(
+            prep_frame_analytic, align_prepped_tr, Is, Ds, intr, cfg,
+            warm_start=False, batched=False,
         )
     )
     np.testing.assert_allclose(
         np.asarray(lm.state), np.asarray(scan.state), atol=3e-3
     )
-
-
-def test_streams_override_validated_on_device():
-    """Regression (ADVICE r4): a non-multiple-of-8 streams override must
-    fail fast with a clear error instead of an opaque Mosaic failure
-    (interpret mode stays unrestricted for the CPU tests)."""
-    import pytest
-
-    from phovo_tpu.ops.fused_batch import _check_streams_override
-
-    with pytest.raises(ValueError, match="multiple of 8"):
-        _check_streams_override(2, interpret=False)
-    _check_streams_override(2, interpret=True)  # fine
-    _check_streams_override(16, interpret=False)  # fine

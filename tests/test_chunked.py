@@ -110,168 +110,15 @@ def test_chunk_carry_accepts_uint8():
     res_u8, _, _ = align_sequence_chunk(
         jnp.asarray(u8(I0)), jnp.asarray(D0, jnp.float32),
         jnp.asarray(u8(I1))[None], jnp.asarray(D1, jnp.float32)[None],
-        intr, cfg, False, False, None,
+        intr, cfg, False, None,
     )
     res_f, _, _ = align_sequence_chunk(
         jnp.asarray(I0, jnp.float32), jnp.asarray(D0, jnp.float32),
         jnp.asarray(I1, jnp.float32)[None], jnp.asarray(D1, jnp.float32)[None],
-        intr, cfg, False, False, None,
+        intr, cfg, False, None,
     )
     # u8 quantization costs a little accuracy but the pose must be the same
     np.testing.assert_allclose(
         np.asarray(res_u8.state[0]), np.asarray(res_f.state[0]), atol=2e-3
     )
     assert np.abs(np.asarray(res_u8.state[0]) - np.asarray(gt)).max() < 0.05
-
-
-def test_chunked_band_fallback_reruns_flagged_pairs(
-    tum_dir, tmp_path, monkeypatch, capsys
-):
-    """Frame-chunked band fallback (apps/phovo_vo.py resolve_states): when
-    the chunk diagnostics report band masking above --band-fallback, the
-    flagged pairs re-align on the exact full-band path — on this CPU run
-    (full-band already) the re-run must reproduce the unflagged trajectory
-    while the fallback accounting reports the engagements."""
-    import phovo_tpu.models.base as base_mod
-    from phovo_tpu.apps.phovo_vo import main
-
-    cfg = tmp_path / "cfg.yml"
-    cfg.write_text(
-        "num_levels: 2\nmax_iterations: [8, 8]\n"
-        "min_gradient_norms: [1.0e-9, 1.0e-9]\nsampling: bilinear\n"
-    )
-    common = ["--config", str(cfg), "--dataset", str(tum_dir),
-              "--intrinsics", "128,128,63.5,47.5", "--quiet", "--chunk", "2"]
-    ref_out = tmp_path / "ref.txt"
-    assert main(common + ["--output", str(ref_out)]) == 0
-
-    calls = []
-    real = base_mod.band_masked_fractions
-
-    def fake_fractions(bm, nv):
-        out = np.asarray(real(bm, nv))
-        out = np.array(out)
-        if not calls:  # flag the first chunk's first pair exactly once
-            out[0] = 0.5
-        calls.append(out.shape)
-        return out
-
-    monkeypatch.setattr(base_mod, "band_masked_fractions", fake_fractions)
-    fb_out = tmp_path / "fb.txt"
-    loud = [a for a in common if a != "--quiet"]
-    capsys.readouterr()
-    assert main(loud + ["--output", str(fb_out),
-                        "--band-fallback", "0.02"]) == 0
-    assert calls  # the gate actually ran
-    out = capsys.readouterr().out
-    assert "band fallback: 1 pair(s)" in out, out[-400:]
-    a = read_trajectory(ref_out)
-    b = read_trajectory(fb_out)
-    assert len(a) == len(b)
-    # CPU path is full-band already, so the re-aligned pair must land on
-    # the same pose (same init, same exact linearization)
-    np.testing.assert_allclose(a.positions, b.positions, atol=1e-5)
-
-
-def _canned_result(states, band_masked, num_valid, levels=2):
-    import jax.numpy as jnp
-
-    from phovo_tpu.models.base import AlignmentResult
-
-    states = np.atleast_2d(np.asarray(states, np.float32))
-    B = len(states)
-    shape = (B, levels) if B > 1 or np.ndim(band_masked) > 1 else (levels,)
-    sq = (lambda x: x) if B > 1 else (lambda x: x[0] if x.ndim > 1 else x)
-    return AlignmentResult(
-        state=jnp.asarray(sq(states)),
-        iterations=jnp.ones(shape, jnp.int32),
-        gradient_norm=jnp.zeros(shape),
-        cost=jnp.zeros(shape),
-        num_valid=jnp.asarray(np.broadcast_to(
-            np.asarray(num_valid, np.float32), shape)),
-        band_masked=jnp.asarray(np.broadcast_to(
-            np.asarray(band_masked, np.float32), shape)),
-    )
-
-
-@pytest.mark.parametrize("warm_start", [True, False])
-def test_chunked_fallback_propagates_corrected_warm_start(
-    tum_dir, tmp_path, monkeypatch, warm_start
-):
-    """VERDICT r3 weak #4: under --warm-start, the in-chunk scan seeded
-    pair k+1 from pair k's PRE-fallback state; a full-band re-run of pair
-    k must therefore re-align every later pair in the chunk from the
-    corrected previous state. Without --warm-start the in-chunk inits are
-    zero and only the flagged pair is re-run."""
-    import jax.numpy as jnp
-
-    import phovo_tpu.models.analytic as analytic_mod
-    from phovo_tpu.apps.phovo_vo import main
-    from phovo_tpu.ops import se3
-
-    cfg = tmp_path / "cfg.yml"
-    cfg.write_text(
-        "num_levels: 2\nmax_iterations: [2, 2]\n"
-        "min_gradient_norms: [1.0e-9, 1.0e-9]\nsampling: bilinear\n"
-    )
-
-    chunk_states = np.array(
-        [[0.10, 0, 0, 0, 0, 0], [0.20, 0, 0, 0, 0, 0]], np.float32
-    )
-    chunk_calls = []
-
-    def fake_chunk(ci, cd, Ii, Dd, intr, config, use_fused, warm, ds=None):
-        # flag pair 0 of the FIRST chunk only (band_masked 300 of 1000)
-        bm = np.zeros((2, 2), np.float32)
-        if not chunk_calls:
-            bm[0, 0] = 300.0
-        chunk_calls.append(len(Ii))
-        res = _canned_result(chunk_states, 0.0, 700.0)
-        res = res._replace(band_masked=jnp.asarray(bm))
-        return res, Ii[-1].astype(jnp.float32), Dd[-1].astype(jnp.float32)
-
-    single_calls = []
-    markers = [
-        np.array([0.30, 0, 0, 0, 0, 0], np.float32),
-        np.array([0.40, 0, 0, 0, 0, 0], np.float32),
-    ]
-
-    def fake_align(si, sd, ti, td, intr, init, config, use_fused=True):
-        single_calls.append((np.array(init), use_fused))
-        return _canned_result(markers[len(single_calls) - 1], 0.0, 700.0)
-
-    monkeypatch.setattr(analytic_mod, "align_sequence_chunk", fake_chunk)
-    monkeypatch.setattr(analytic_mod, "align_analytic", fake_align)
-
-    out = tmp_path / "traj.txt"
-    cli = ["--config", str(cfg), "--dataset", str(tum_dir),
-           "--intrinsics", "128,128,63.5,47.5", "--quiet", "--chunk", "2",
-           "--band-fallback", "0.02", "--output", str(out),
-           "--max-frames", "2"]
-    if warm_start:
-        cli.append("--warm-start")
-    assert main(cli) == 0
-
-    if warm_start:
-        # pair 0: full-band re-run from zero; pair 1: fused re-run seeded
-        # from pair 0's CORRECTED state
-        assert len(single_calls) == 2
-        np.testing.assert_allclose(single_calls[0][0], 0.0)
-        assert single_calls[0][1] is False
-        np.testing.assert_allclose(single_calls[1][0], markers[0])
-        assert single_calls[1][1] is True
-        expected = [markers[0], markers[1]]
-    else:
-        # zero-init semantics: only the flagged pair re-runs
-        assert len(single_calls) == 1
-        np.testing.assert_allclose(single_calls[0][0], 0.0)
-        assert single_calls[0][1] is False
-        expected = [markers[0], chunk_states[1]]
-
-    traj = read_trajectory(out)
-    pose = np.eye(4)
-    for k, st in enumerate(expected):
-        pose = pose @ np.linalg.inv(se3.pose_matrix_np(st))
-        np.testing.assert_allclose(
-            traj.positions[k], pose[:3, 3], atol=1e-6
-        )

@@ -84,15 +84,3 @@ def test_schedule_padding(tmp_path):
 def test_validation_rejects_bad_lengths():
     with pytest.raises(ValueError):
         PhovoConfig(num_levels=3, max_iterations=(1, 2)).validate()
-
-
-def test_mix_mode_validation_and_parsing(tmp_path):
-    import pytest as _pytest
-
-    from phovo_tpu.utils.config import PhovoConfig, load_config
-
-    with _pytest.raises(ValueError, match="mix_mode"):
-        PhovoConfig(mix_mode="fp8").validate()
-    p = tmp_path / "c.yml"
-    p.write_text("num_levels: 1\nmax_iterations: [5]\nmix_mode: bf16x2\n")
-    assert load_config(p).mix_mode == "bf16x2"

@@ -109,7 +109,7 @@ def test_full_pixel_jacobian_matches_symbolic(symbolic):
 
 
 def test_kernel_geometry_matches_symbolic(symbolic):
-    """warp_and_jacobian's J_pix (the quantity the Pallas kernel computes
+    """warp_and_jacobian's J_pix (the quantity the linearizers compute
     per pixel) equals the symbolic derivative for an actual depth image."""
     fx, fy, cx, cy = 128.0, 130.0, 63.5, 47.5
     intr = Intrinsics(np.float32(fx), np.float32(fy), np.float32(cx), np.float32(cy))

@@ -1,6 +1,6 @@
 """ESM Jacobian mode (gradient_at='esm', Benhimane & Malis 2004).
 
-A TPU-native extension beyond the reference (which always uses the target
+An extension beyond the reference (which always uses the target
 gradient, CPhotoconsistencyOdometryAnalytic.h:346-347): the Jacobian chains
 the MEAN of the warped target gradient and the source gradient, giving
 second-order convergence from first derivatives only. Photometric backends
@@ -13,7 +13,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from phovo_tpu.ops import fused as F
 from phovo_tpu.ops import pyramid as pyr
 from phovo_tpu.ops.residuals import normal_equations, photometric_residual_jacobian
 from phovo_tpu.utils.config import PhovoConfig
@@ -63,34 +62,6 @@ def test_esm_is_mean_of_warped_and_source_chain(intr, small_pair):
         np.asarray(J_e), 0.5 * (np.asarray(J_w) + np.asarray(J_s)),
         atol=1e-6,
     )
-
-
-@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
-def test_fused_esm_matches_xla_esm(intr, small_pair, sampling):
-    """The Pallas kernel's hoisted-source-gradient ESM path reproduces the
-    XLA ESM normal equations (interpret mode)."""
-    if not F._HAS_PALLAS:
-        pytest.skip("pallas unavailable")
-    (I0, D0, I1, gx1, gy1, gx0, gy0), ne_ref = _esm_case(
-        small_pair, intr, sampling
-    )
-    tgt = F.pack_target_colmajor(I1, gx1, gy1)
-    ne = F.fused_normal_equations_pallas(
-        I0, D0, tgt, STATE, intr, 0.3, 5.0, sampling, interpret=True,
-        mix_mode="f32", source_grads=(gx0, gy0),
-    )
-    scale = float(jnp.abs(ne_ref.JtJ).max())
-    np.testing.assert_allclose(
-        np.asarray(ne.JtJ), np.asarray(ne_ref.JtJ), atol=2e-5 * scale
-    )
-    gscale = max(1.0, float(jnp.abs(ne_ref.Jtr).max()))
-    np.testing.assert_allclose(
-        np.asarray(ne.Jtr), np.asarray(ne_ref.Jtr), atol=2e-5 * gscale
-    )
-    np.testing.assert_allclose(
-        float(ne.cost), float(ne_ref.cost), rtol=1e-4, atol=1e-6
-    )
-    assert abs(float(ne.num_valid) - float(ne_ref.num_valid)) < 0.5
 
 
 def _cfg(**kw):

@@ -1,17 +1,13 @@
-"""Inverse-compositional backend: convergence, kernel/XLA agreement, and
+"""Inverse-compositional backend: convergence, skipped levels, and
 agreement with the analytic (forward) backend."""
 
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from phovo_tpu.models.analytic import align_analytic
 from phovo_tpu.models.ic import PhotoconsistencyOdometryIC, align_ic
-from phovo_tpu.ops import ic as ic_ops
-from phovo_tpu.ops import pyramid as pyr
-from phovo_tpu.ops import se3
 from phovo_tpu.utils.config import PhovoConfig
 
 CFG = PhovoConfig(
@@ -53,29 +49,6 @@ def test_ic_agrees_with_analytic(intr, small_pair):
     )
 
 
-def test_ic_kernel_interpret_matches_xla(intr, small_pair):
-    """The whole-level Pallas IC kernel (interpret mode) against the pure-XLA
-    IC loop on identical precomputed inputs."""
-    if not ic_ops._HAS_PALLAS:
-        pytest.skip("pallas unavailable")
-    I0, D0, I1, _, gt = small_pair
-    I0, D0, I1 = map(jnp.asarray, (I0, D0, I1))
-    gx0, gy0 = pyr.scharr(I0, "x", 0.03125), pyr.scharr(I0, "y", 0.03125)
-    J8, L = ic_ops.ic_precompute(I0, D0, gx0, gy0, intr, 0.3, 5.0)
-    T0 = se3.pose_matrix(jnp.zeros(6))
-    for sampling in ("nearest", "bilinear"):
-        Tk, itk, gk, ck, nk, _mk = ic_ops.ic_gn_level(
-            T0, D0, J8, L, I1, intr, 6, 1e-10, 1.0, sampling, interpret=True
-        )
-        Tx, itx, gx_, cx_, nx, _mx = ic_ops.ic_gn_level_xla(
-            T0, D0, J8, L, I1, intr, 6, 1e-10, 1.0, sampling
-        )
-        assert int(itk) == int(itx)
-        np.testing.assert_allclose(np.asarray(Tk), np.asarray(Tx), atol=5e-5)
-        # banded-window masking may drop a handful of boundary pixels
-        assert abs(float(nk) - float(nx)) <= 0.01 * float(nx) + 1
-
-
 def test_ic_skipped_levels_pass_state_through(intr, small_pair):
     I0, D0, I1, D1, gt = small_pair
     cfg = dataclasses.replace(CFG, max_iterations=(0, 0, 0))
@@ -100,29 +73,6 @@ def test_ic_object_api(intr, small_pair):
     assert err < 5e-3, (np.asarray(res.state), gt)
 
 
-def test_ic_precompute_pallas_interpret_matches_xla(intr, small_pair):
-    """Fused precompute kernel (interpret mode) vs the XLA precompute."""
-    if not ic_ops._HAS_PALLAS:
-        pytest.skip("pallas unavailable")
-    I0, D0, _, _, _ = small_pair
-    I0, D0 = jnp.asarray(I0), jnp.asarray(D0)
-    gx0 = pyr.scharr(I0, "x", 0.03125)
-    gy0 = pyr.scharr(I0, "y", 0.03125)
-    J8_ref, L_ref = ic_ops.ic_precompute(I0, D0, gx0, gy0, intr, 0.3, 5.0)
-    J8_k, Lrow_k = ic_ops.ic_precompute_pallas(
-        I0, D0, gx0, gy0, intr, 0.3, 5.0, interpret=True
-    )
-    N = J8_ref.shape[1]
-    np.testing.assert_allclose(
-        np.asarray(J8_k[:, :N]), np.asarray(J8_ref), atol=1e-5
-    )
-    assert np.all(np.asarray(J8_k[:, N:]) == 0.0)  # padding is exact zeros
-    L_k = np.asarray(Lrow_k).reshape(6, 6)
-    np.testing.assert_allclose(
-        L_k, np.tril(np.asarray(L_ref)), atol=2e-4 * abs(np.asarray(L_ref)).max()
-    )
-
-
 def test_ic_rejects_robust_loss(intr, small_pair):
     """IC's precomputed factorization cannot honor IRLS reweighting; the
     backend must fail loudly rather than silently ignore robust_loss."""
@@ -139,26 +89,3 @@ def test_ic_rejects_robust_loss(intr, small_pair):
     )
     with _pytest.raises(ValueError, match="robust_loss"):
         align_ic(I0, D0, I1, D1, intr, jnp.zeros(6, jnp.float32), cfg)
-
-
-@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
-def test_ic_mix_modes_match_f32(intr, small_pair, sampling):
-    """The IC kernel's bf16x2 sampling path (shared mixed_col_dot) tracks the
-    f32 kernel closely — guards the shared-primitive wiring in ops/ic.py."""
-    if not ic_ops._HAS_PALLAS:
-        pytest.skip("pallas unavailable")
-    I0, D0, I1, _, _ = small_pair
-    I0, D0, I1 = map(jnp.asarray, (I0, D0, I1))
-    gx0, gy0 = pyr.scharr(I0, "x", 0.03125), pyr.scharr(I0, "y", 0.03125)
-    J8, L = ic_ops.ic_precompute(I0, D0, gx0, gy0, intr, 0.3, 5.0)
-    T0 = se3.pose_matrix(jnp.zeros(6))
-    Tf, itf, *_ = ic_ops.ic_gn_level(
-        T0, D0, J8, L, I1, intr, 4, 1e-10, 1.0, sampling,
-        interpret=True, mix_mode="f32",
-    )
-    Tb, itb, *_ = ic_ops.ic_gn_level(
-        T0, D0, J8, L, I1, intr, 4, 1e-10, 1.0, sampling,
-        interpret=True, mix_mode="bf16x2",
-    )
-    assert int(itf) == int(itb)
-    np.testing.assert_allclose(np.asarray(Tb), np.asarray(Tf), atol=5e-4)

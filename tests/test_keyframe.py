@@ -246,13 +246,14 @@ def test_level_skipping_config_does_not_promote_every_frame(loop_sequence):
 
 @pytest.mark.parametrize("chunk", [3, 16])
 def test_run_chunked_matches_run(loop_sequence, chunk):
-    """Chunked keyframe tracking must reproduce the per-frame path exactly:
-    same promotions, edges, loop closures, and tracked poses."""
+    """Chunked keyframe tracking on the serial warm-start chain
+    (levelmajor='off') must reproduce the per-frame path exactly: same
+    promotions, edges, loop closures, and tracked poses."""
     frames, _ = loop_sequence
     ref = _make_kvo()
     tracked_ref = list(ref.run(frames))
     kvo = _make_kvo()
-    tracked = list(kvo.run_chunked(frames, chunk=chunk))
+    tracked = list(kvo.run_chunked(frames, chunk=chunk, levelmajor="off"))
 
     assert len(tracked) == len(tracked_ref)
     assert [k.frame_index for k in kvo.keyframes] == [
@@ -415,18 +416,18 @@ def test_incremental_pose_graph_matches_batch_finalize(loop_sequence):
 
 @pytest.mark.parametrize("chunk", [4])
 def test_run_chunked_levelmajor_matches_run(loop_sequence, chunk):
-    """LEVEL-major keyframe tracking (shared-source batch kernel +
-    constant-velocity inits, VERDICT r4 item 1) must reproduce the
+    """Batched (level-major) keyframe tracking — shared keyframe products,
+    every frame initialized at the last solved state — must reproduce the
     per-frame path's promotions, edges, and closures exactly, and its
-    poses within kernel-reassociation tolerance — the warm-start chain it
-    replaces was an initialization aid, not a semantic requirement (all
-    frames of a chunk track against the SAME keyframe; with enough
-    iterations both init schemes converge to the same optimum)."""
+    poses within solver tolerance — the warm-start chain it replaces was an
+    initialization aid, not a semantic requirement (all frames of a chunk
+    track against the SAME keyframe; with enough iterations both init
+    schemes converge to the same optimum)."""
     frames, _ = loop_sequence
     ref = _make_kvo()
     tracked_ref = list(ref.run(frames))
     kvo = _make_kvo()
-    tracked = list(kvo.run_chunked(frames, chunk=chunk, levelmajor="interpret"))
+    tracked = list(kvo.run_chunked(frames, chunk=chunk))
 
     assert len(tracked) == len(tracked_ref)
     assert [k.frame_index for k in kvo.keyframes] == [
@@ -444,9 +445,9 @@ def test_run_chunked_levelmajor_matches_run(loop_sequence, chunk):
 
 def test_run_chunked_ceres_levelmajor_matches_run(loop_sequence):
     """The trust-region (ceres) backend driving the keyframe pipeline at
-    chunked speed (VERDICT r4 item 6): run_chunked through the shared-
-    source batched TR kernel must reproduce the per-frame TR path's
-    promotions/edges and poses within kernel tolerance."""
+    chunked speed (VERDICT r4 item 6): run_chunked through the batched
+    shared-keyframe TR solve must reproduce the per-frame TR path's
+    promotions/edges and poses within solver tolerance."""
     from phovo_tpu.models.autodiff import PhotoconsistencyOdometryAutodiff
 
     cfg = PhovoConfig(
@@ -476,7 +477,7 @@ def test_run_chunked_ceres_levelmajor_matches_run(loop_sequence):
     ref = mk()
     tracked_ref = list(ref.run(frames))
     kvo = mk()
-    tracked = list(kvo.run_chunked(frames, chunk=4, levelmajor="interpret"))
+    tracked = list(kvo.run_chunked(frames, chunk=4))
     assert len(tracked) == len(tracked_ref)
     assert [k.frame_index for k in kvo.keyframes] == [
         k.frame_index for k in ref.keyframes

@@ -169,12 +169,12 @@ def test_multi_sequence_server_matches_serial(intr, small_pair):
     Ds = jnp.broadcast_to(D, (S,) + D.shape)
 
     mesh = make_mesh(4, pixel_parallel=1)
-    serve = make_multi_sequence_server(mesh, CFG, use_fused=False)
+    serve = make_multi_sequence_server(mesh, CFG)
     res, poses = serve(Is, Ds, intr)
     assert res.state.shape == (S, 2, 6)
     assert poses.shape == (S, 2, 4, 4)
 
-    serial = align_sequence(I, D, intr, CFG, use_fused=False)
+    serial = align_sequence(I, D, intr, CFG)
     for s in range(S):
         np.testing.assert_allclose(
             np.asarray(res.state[s]), np.asarray(serial.state), atol=1e-5
@@ -260,14 +260,12 @@ def test_pose_graph_bucketed_matches_unbucketed():
 
 
 def test_levelmajor_sharded_matches_single_device(intr, small_pair):
-    """Pallas-under-sharding (VERDICT r4 item 5): the sublane-batched
-    level-major kernels composed with shard_map on the virtual mesh
-    (interpret mode) must reproduce the 1-device level-major numbers —
-    each device flattens ITS streams' pairs locally, zero cross-device
-    traffic."""
+    """The batched (level-major) chains composed with shard_map on the
+    virtual mesh must reproduce the 1-device numbers — each device batches
+    ITS streams' pairs locally, zero cross-device traffic."""
     from phovo_tpu.parallel.batch import (
-        align_sequences_levelmajor,
-        align_sequences_levelmajor_sharded,
+        align_sequences,
+        make_multi_sequence_server,
     )
 
     I0, D0, I1, D1, _ = small_pair
@@ -282,10 +280,8 @@ def test_levelmajor_sharded_matches_single_device(intr, small_pair):
     # perturb per stream so shards do distinct work
     Is = Is + jnp.arange(S, dtype=jnp.float32)[:, None, None, None] * 0.001
     mesh = make_mesh(4, pixel_parallel=1)
-    sh = align_sequences_levelmajor_sharded(
-        Is, Ds, intr, cfg, mesh, interpret=True
-    )
-    single = align_sequences_levelmajor(Is, Ds, intr, cfg, interpret=True)
+    sh, _ = make_multi_sequence_server(mesh, cfg)(Is, Ds, intr)
+    single, _ = align_sequences(Is, Ds, intr, cfg)
     np.testing.assert_allclose(
         np.asarray(sh.state), np.asarray(single.state), atol=1e-5
     )
@@ -295,10 +291,13 @@ def test_levelmajor_sharded_matches_single_device(intr, small_pair):
 
 
 def test_chunked_server_levelmajor_route_matches_default(intr, small_pair):
-    """make_chunked_sequence_server(levelmajor='interpret') must produce
-    chunk results equivalent to the vmap-scan default route (same inits,
-    zero warm start) on the virtual mesh."""
-    from phovo_tpu.parallel.batch import make_chunked_sequence_server
+    """make_chunked_sequence_server (shard_map over the 'data' axis) must
+    produce the chunk results of the unsharded serve_sequences_chunk on
+    the same streams (same inits, zero warm start)."""
+    from phovo_tpu.parallel.batch import (
+        make_chunked_sequence_server,
+        serve_sequences_chunk,
+    )
 
     I0, D0, I1, D1, _ = small_pair
     cfg = PhovoConfig(
@@ -312,62 +311,17 @@ def test_chunked_server_levelmajor_route_matches_default(intr, small_pair):
     carry_d = jnp.asarray(np.stack([D0] * S))
     Is = jnp.asarray(np.stack([np.stack([I1, I0])] * S))
     Ds = jnp.asarray(np.stack([np.stack([D1, D0])] * S))
-    serve_lm = make_chunked_sequence_server(
-        mesh, cfg, levelmajor="interpret"
+    serve = make_chunked_sequence_server(mesh, cfg)
+    res_sh, poses_sh, ci_sh, cd_sh = serve(carry_i, carry_d, Is, Ds, intr)
+    res_1, poses_1, ci_1, cd_1 = serve_sequences_chunk(
+        carry_i, carry_d, Is, Ds, intr, cfg
     )
-    serve_off = make_chunked_sequence_server(mesh, cfg, levelmajor="off")
-    res_lm, poses_lm, ci_lm, cd_lm = serve_lm(carry_i, carry_d, Is, Ds, intr)
-    res_off, poses_off, ci_off, cd_off = serve_off(
-        carry_i, carry_d, Is, Ds, intr
-    )
-    assert res_lm.state.shape == (S, B, 6)
+    assert res_sh.state.shape == (S, B, 6)
     np.testing.assert_allclose(
-        np.asarray(res_lm.state), np.asarray(res_off.state), atol=1e-4
+        np.asarray(res_sh.state), np.asarray(res_1.state), atol=1e-4
     )
     np.testing.assert_allclose(
-        np.asarray(poses_lm), np.asarray(poses_off), atol=1e-4
+        np.asarray(poses_sh), np.asarray(poses_1), atol=1e-4
     )
-    np.testing.assert_allclose(np.asarray(ci_lm), np.asarray(ci_off))
-    np.testing.assert_allclose(np.asarray(cd_lm), np.asarray(cd_off))
-
-
-def test_levelmajor_sharded_colsplit_matches_single_device():
-    """The COLUMN-SPLIT fine-level layout composed with shard_map on the
-    virtual mesh (r5): a 64x160 level-0 shape engages colsplit
-    (colsplit_ok: 128 < W <= 224) inside each shard's level-major batch;
-    sharded must equal the 1-device run."""
-    from phovo_tpu.models.analytic import _use_colsplit
-    from phovo_tpu.parallel.batch import (
-        align_sequences_levelmajor,
-        align_sequences_levelmajor_sharded,
-    )
-    from phovo_tpu.utils.synthetic import make_pair
-    from phovo_tpu.ops.camera import Intrinsics
-
-    H, W = 64, 160
-    intr2 = Intrinsics(
-        np.float32(W), np.float32(W), np.float32(W / 2 - 0.5),
-        np.float32(H / 2 - 0.5),
-    )
-    assert _use_colsplit(H, W, False)
-    cfg = PhovoConfig(
-        num_levels=2, blur_filter_sizes=(0, 0), gradient_scales=(0.0625,) * 2,
-        max_iterations=(3, 3), lambda_steps=(1.0, 1.0),
-        min_gradient_norms=(1e-10,) * 2, sampling="nearest",
-    )
-    I0, D0, I1, D1, _ = make_pair(intr2, shape=(H, W))
-    S, T = 2, 3
-    Is = jnp.asarray(np.stack([np.stack([I0, I1, I0])] * S))
-    Ds = jnp.asarray(np.stack([np.stack([D0, D1, D0])] * S))
-    Is = Is + jnp.arange(S, dtype=jnp.float32)[:, None, None, None] * 0.001
-    mesh = make_mesh(2, pixel_parallel=1)
-    sh = align_sequences_levelmajor_sharded(
-        Is, Ds, intr2, cfg, mesh, interpret=True
-    )
-    single = align_sequences_levelmajor(Is, Ds, intr2, cfg, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(sh.state), np.asarray(single.state), atol=1e-5
-    )
-    np.testing.assert_array_equal(
-        np.asarray(sh.iterations), np.asarray(single.iterations)
-    )
+    np.testing.assert_allclose(np.asarray(ci_sh), np.asarray(ci_1))
+    np.testing.assert_allclose(np.asarray(cd_sh), np.asarray(cd_1))

@@ -14,7 +14,6 @@ import numpy as np
 import pytest
 
 from phovo_tpu.models.analytic import PhotoconsistencyOdometryAnalytic
-from phovo_tpu.ops import fused as fused_ops
 from phovo_tpu.ops.camera import Intrinsics
 from phovo_tpu.ops.robust import LOSSES, robust_weight, sqrt_weight
 from phovo_tpu.parallel.bundle_adjustment import make_synthetic_ba, optimize_bundle
@@ -137,38 +136,6 @@ def test_robust_matches_plain_on_clean_data():
     np.testing.assert_allclose(s_rob, s_plain, atol=2e-4)
 
 
-def test_packed_path_robust_matches_pallas_interpret():
-    """The Pallas kernel's in-kernel IRLS (interpret mode) must produce the
-    same normal equations as the XLA packed path."""
-    I0, D0, I1, D1, _ = _corrupted_pair()
-    from phovo_tpu.ops.pyramid import scharr
-
-    gx = scharr(jnp.asarray(I1), "x", 0.0625)
-    gy = scharr(jnp.asarray(I1), "y", 0.0625)
-    state = jnp.asarray([0.01, -0.01, 0.005, 0.004, -0.002, 0.003], jnp.float32)
-    packed = fused_ops.pack_target(jnp.asarray(I1), gx, gy)
-    tgt_cols = fused_ops.pack_target_colmajor(jnp.asarray(I1), gx, gy)
-    for loss in ("huber", "tukey"):
-        ne_x = fused_ops.packed_normal_equations(
-            jnp.asarray(I0), jnp.asarray(D0), packed, state, INTR,
-            0.3, 5.0, "bilinear", robust_loss=loss, robust_delta=0.05,
-        )
-        ne_p = fused_ops.fused_normal_equations_pallas(
-            jnp.asarray(I0), jnp.asarray(D0), tgt_cols, state, INTR,
-            0.3, 5.0, "bilinear", interpret=True,
-            robust_loss=loss, robust_delta=0.05,
-        )
-        np.testing.assert_allclose(
-            np.asarray(ne_p.JtJ), np.asarray(ne_x.JtJ), rtol=2e-5, atol=2e-2
-        )
-        np.testing.assert_allclose(
-            np.asarray(ne_p.Jtr), np.asarray(ne_x.Jtr), rtol=2e-5, atol=2e-2
-        )
-        np.testing.assert_allclose(
-            float(ne_p.cost), float(ne_x.cost), rtol=2e-5
-        )
-
-
 # -- bundle adjustment --------------------------------------------------------
 
 
@@ -245,46 +212,6 @@ def test_tdist_matches_plain_on_clean_data():
     s_plain = _align(I0, D0, I1, D1, _cfg())
     s_t = _align(I0, D0, I1, D1, _cfg("tdist", 0.1))
     np.testing.assert_allclose(s_t, s_plain, atol=5e-4)
-
-
-def test_tdist_fused_level_matches_xla_solver():
-    """Whole-level in-kernel adaptive scale (interpret mode) vs the XLA
-    gauss_newton_level with adaptive_scale driving the packed linearizer."""
-    if not fused_ops._HAS_PALLAS:
-        pytest.skip("pallas unavailable")
-    from phovo_tpu.ops.pyramid import scharr
-    from phovo_tpu.solvers.gauss_newton import gauss_newton_level
-
-    I0, D0, I1, D1, _ = _corrupted_pair()
-    I0, D0, I1 = map(jnp.asarray, (I0, D0, I1))
-    gx = scharr(I1, "x", 0.0625)
-    gy = scharr(I1, "y", 0.0625)
-
-    st, its, gnorm, cost, nvalid, _masked = fused_ops.fused_gn_level(
-        I0, D0, fused_ops.pack_target_colmajor(I1, gx, gy), INTR,
-        jnp.zeros(6), 0.3, 5.0,
-        max_iterations=6, min_gradient_norm=1e-10, lambda_step=1.0,
-        sampling="bilinear", interpret=True,
-        robust_loss="tdist", robust_delta=0.1,
-    )
-
-    packed = fused_ops.pack_target(I1, gx, gy)
-
-    def linearize(s, sigma):
-        return fused_ops.packed_normal_equations(
-            I0, D0, packed, s, INTR, 0.3, 5.0, "bilinear",
-            "tdist", sigma,
-        )
-
-    ref = gauss_newton_level(
-        linearize, jnp.zeros(6), 6, 1e-10, 1.0, adaptive_scale=0.1
-    )
-    # the kernel's banded row window masks a handful of band-boundary
-    # pixels (documented divergence, ops/fused.py); with adaptive weights
-    # that tiny nvalid/cost delta also feeds back through sigma, so the
-    # tolerance is a bit looser than the fixed-weight agreement tests
-    np.testing.assert_allclose(np.asarray(st), np.asarray(ref.state), atol=1.5e-3)
-    assert int(its) == int(ref.iterations)
 
 
 def test_tdist_rejected_by_nonphotometric_backends():

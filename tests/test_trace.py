@@ -32,7 +32,7 @@ def test_trace_matches_solver_final_state(intr, small_pair):
     assert [r.level for r in records] == [1] * 5 + [0] * 3
     res = align_analytic(
         jnp.asarray(I0), jnp.asarray(D0), jnp.asarray(I1), jnp.asarray(D1),
-        intr, jnp.zeros(6, jnp.float32), CFG, use_fused=False,
+        intr, jnp.zeros(6, jnp.float32), CFG,
     )
     np.testing.assert_allclose(
         records[-1].state, np.asarray(res.state), atol=1e-5
@@ -88,7 +88,7 @@ def test_trace_honors_gradient_at_source(intr, small_pair):
     records = trace_alignment(I0, D0, I1, D1, intr, cfg, backend="analytic")
     res = align_analytic(
         jnp.asarray(I0), jnp.asarray(D0), jnp.asarray(I1), jnp.asarray(D1),
-        intr, jnp.zeros(6, jnp.float32), cfg, use_fused=False,
+        intr, jnp.zeros(6, jnp.float32), cfg,
     )
     np.testing.assert_allclose(
         records[-1].state, np.asarray(res.state), atol=1e-5
@@ -105,7 +105,7 @@ def test_trace_esm_matches_solver(intr, small_pair):
     records = trace_alignment(I0, D0, I1, D1, intr, cfg, backend="analytic")
     res = align_analytic(
         jnp.asarray(I0), jnp.asarray(D0), jnp.asarray(I1), jnp.asarray(D1),
-        intr, jnp.zeros(6, jnp.float32), cfg, use_fused=False,
+        intr, jnp.zeros(6, jnp.float32), cfg,
     )
     np.testing.assert_allclose(
         records[-1].state, np.asarray(res.state), atol=1e-5
@@ -122,7 +122,7 @@ def test_trace_tdist_matches_solver(intr, small_pair):
     records = trace_alignment(I0, D0, I1, D1, intr, cfg, backend="analytic")
     res = align_analytic(
         jnp.asarray(I0), jnp.asarray(D0), jnp.asarray(I1), jnp.asarray(D1),
-        intr, jnp.zeros(6, jnp.float32), cfg, use_fused=False,
+        intr, jnp.zeros(6, jnp.float32), cfg,
     )
     np.testing.assert_allclose(
         records[-1].state, np.asarray(res.state), atol=1e-5

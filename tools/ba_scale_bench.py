@@ -1,4 +1,4 @@
-"""Dense-W vs sparse-W Schur bundle adjustment scale bench (on chip).
+"""Dense-W vs sparse-W Schur bundle adjustment scale bench.
 
 VERDICT r1 item 7's acceptance run: a 50k-observation / 10k-landmark window
 must optimize on chip WITHOUT materializing the dense (M, P, 6, 3) W, plus
@@ -7,8 +7,9 @@ dense table).
 
 Usage: python -m tools.ba_scale_bench [--repeats 3] [--out artifacts/ba_scale.json]
 
-Each row: problem size, per-optimize wall (5 LM iterations, warm), and the
-dense-W footprint that the sparse path avoids. Dense cases that exceed a
+Each row: problem size, per-optimize wall (5 LM iterations, warm), the
+dense-W footprint that the sparse path avoids, and the device (JAX
+platform/kind/count; the card's name and power limit print first). Dense cases that exceed a
 footprint guard are skipped rather than risking a device OOM mid-bench.
 """
 
@@ -56,6 +57,9 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
+    from phovo_tpu.utils.device import print_device
+
+    dev = print_device()
     rows = []
     for M, P, opp in CASES:
         problem, gt_states, _ = make_synthetic_ba(
@@ -70,7 +74,7 @@ def main(argv=None):
             "visibility": "dense" if opp is None else f"sparse({opp}/pose)",
             "schur_pairs": int(pa.shape[0]),
             "dense_W_MB": round(dense_w_bytes / 1e6, 1),
-            "platform": jax.devices()[0].platform,
+            "device": dev,
         }
         for mode in ("dense", "sparse"):
             if mode == "dense" and dense_w_bytes > DENSE_W_GUARD:

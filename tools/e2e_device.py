@@ -1,21 +1,35 @@
-"""Full-system device drive: synthetic TUM dataset -> phovo-vo CLI on TPU."""
+"""Full-system device drive: synthetic TUM dataset -> phovo-vo CLI on the
+accelerator.
+
+    python tools/e2e_device.py
+
+The parent process only renders the datasets, on the CPU; every phovo-vo
+run is a child process that owns the card (one JAX process per card).
+"""
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-import cv2
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from phovo_tpu.ops import se3
-from phovo_tpu.ops.camera import TUM_FR1
-from phovo_tpu.utils.synthetic import render_plane
-from phovo_tpu.utils.trajectory import format_pose_line
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+import jax  # noqa: E402
 
-ROOT = Path("/tmp/phovo_e2e_seq")
-LOOP_ROOT = Path("/tmp/phovo_e2e_loop")
-CLUTTER_ROOT = Path("/tmp/phovo_e2e_clutter")
+jax.config.update("jax_platforms", "cpu")  # the phovo-vo children own the card
+
+from phovo_tpu.ops import se3  # noqa: E402
+from phovo_tpu.ops.camera import TUM_FR1  # noqa: E402
+from phovo_tpu.utils.synthetic import render_plane  # noqa: E402
+from phovo_tpu.utils.device import gpu_name_and_power_limit  # noqa: E402
+from phovo_tpu.utils.trajectory import format_pose_line  # noqa: E402
+
+TMP = Path(tempfile.gettempdir())
+ROOT = TMP / "phovo_e2e_seq"
+LOOP_ROOT = TMP / "phovo_e2e_loop"
+CLUTTER_ROOT = TMP / "phovo_e2e_clutter"
 N = 120
 SHAPE = (480, 640)
 
@@ -41,11 +55,13 @@ def _loop_state(k):
 def _build(root, state_fn):
     if (root / "rgb.txt").exists():
         return
+    import cv2
+
     (root / "rgb").mkdir(parents=True, exist_ok=True)
     (root / "depth").mkdir(parents=True, exist_ok=True)
     rgb_lines, depth_lines, gt_lines = [], [], []
     for k in range(N):
-        T = np.asarray(se3.pose_matrix(state_fn(k)))
+        T = se3.pose_matrix_np(state_fn(k))
         I, D = render_plane(TUM_FR1, SHAPE, T)
         ts = 1000.0 + 0.05 * k
         cv2.imwrite(str(root / "rgb" / f"{ts:.6f}.png"), (I * 255).astype(np.uint8))
@@ -66,6 +82,8 @@ def _build_cluttered(root):
     data lives in (VERDICT r1 item 2)."""
     if (root / "rgb.txt").exists():
         return
+    import cv2
+
     from phovo_tpu.utils.synthetic import make_cluttered_sequence
 
     (root / "rgb").mkdir(parents=True, exist_ok=True)
@@ -106,7 +124,7 @@ def run(label, args, root=ROOT):
                         "--dataset", str(root), "--intrinsics", "fr1",
                         "--eval-gt", str(root / "groundtruth.txt"),
                         *args],
-                       capture_output=True, text=True, cwd="/root/repo")
+                       capture_output=True, text=True, cwd=REPO)
     dt = time.time() - t0
     tail = [ln for ln in p.stdout.splitlines() if "ATE" in ln or "RPE" in ln
             or "frames" in ln.lower() or "pairs" in ln.lower()
@@ -120,31 +138,33 @@ def run(label, args, root=ROOT):
 
 
 def main():
+    # the phovo-vo children run on JAX's default backend: the card
+    print("\n".join(gpu_name_and_power_limit()) or "no nvidia-smi", flush=True)
     build_dataset()
     rc = 0
     rc |= run("analytic chunk=64", [
-        "--output", "/tmp/e2e_traj_a.txt", "--chunk", "64"])
+        "--output", str(TMP / "e2e_traj_a.txt"), "--chunk", "64"])
     rc |= run("ic backend chunk=64", [
-        "--output", "/tmp/e2e_traj_ic.txt", "--backend", "ic", "--chunk", "64"])
+        "--output", str(TMP / "e2e_traj_ic.txt"), "--backend", "ic", "--chunk", "64"])
     rc |= run("biobjective chunk=64", [
-        "--output", "/tmp/e2e_traj_bi.txt", "--backend", "biobjective",
+        "--output", str(TMP / "e2e_traj_bi.txt"), "--backend", "biobjective",
         "--chunk", "64"])
     rc |= run("ceres backend", [
-        "--output", "/tmp/e2e_traj_c.txt", "--backend", "ceres"])
+        "--output", str(TMP / "e2e_traj_c.txt"), "--backend", "ceres"])
     rc |= run("keyframe + pose graph + photometric BA", [
-        "--output", "/tmp/e2e_traj_kf.txt", "--mode", "keyframe",
+        "--output", str(TMP / "e2e_traj_kf.txt"), "--mode", "keyframe",
         "--ba-iterations", "3"])
     rc |= run("loop-closure sequence (frame mode — keyframe-wall denominator)", [
-        "--output", "/tmp/e2e_traj_loop_frame.txt", "--chunk", "16"],
+        "--output", str(TMP / "e2e_traj_loop_frame.txt"), "--chunk", "16"],
         root=LOOP_ROOT)
     rc |= run("loop-closure sequence (keyframe mode)", [
-        "--output", "/tmp/e2e_traj_loop.txt", "--mode", "keyframe",
+        "--output", str(TMP / "e2e_traj_loop.txt"), "--mode", "keyframe",
         "--chunk", "16", "--ba-iterations", "3"], root=LOOP_ROOT)
     rc |= run("cluttered+degraded sequence (robust chunked)", [
-        "--output", "/tmp/e2e_traj_clutter.txt", "--chunk", "64",
+        "--output", str(TMP / "e2e_traj_clutter.txt"), "--chunk", "64",
         "--robust-loss", "huber"], root=CLUTTER_ROOT)
     rc |= run("cluttered+degraded sequence (keyframe mode)", [
-        "--output", "/tmp/e2e_traj_clutter_kf.txt", "--mode", "keyframe",
+        "--output", str(TMP / "e2e_traj_clutter_kf.txt"), "--mode", "keyframe",
         "--chunk", "16", "--ba-iterations", "3",
         "--robust-loss", "huber"], root=CLUTTER_ROOT)
     print("ALL OK" if rc == 0 else "FAILURES")

@@ -11,7 +11,8 @@ closures, driven through `phovo-vo --mode keyframe --loader raw
 --pg-solver cg --ba-iterations N` — the full production path (zero-decode
 raw streaming with storage-dtype device conversion, chunked keyframe
 tracking, deferred batched closures, bucketed CG pose graph, windowed
-auto-Schur photometric BA) on the chip.
+auto-Schur photometric BA) on the accelerator. The parent renders the data
+with numpy only; the phovo-vo child owns the card.
 
 The trajectory is `--laps` laps of a circle in the plane-scene world: every
 lap revisits the previous laps' keyframe positions, so closures accumulate
@@ -22,7 +23,7 @@ Usage:
     python -m tools.mapscale_e2e [--frames 1200] [--chunk 32] [--ba 3]
         [--cross-check]   # also run --pg-solver dense and compare ATE
 
-Writes artifacts/mapscale.json and prints the BASELINE.md table rows.
+Writes artifacts/mapscale.json.
 """
 
 from __future__ import annotations
@@ -32,18 +33,22 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
 from phovo_tpu.ops import se3
 from phovo_tpu.ops.camera import TUM_FR1
 from phovo_tpu.utils.synthetic import render_plane
+from phovo_tpu.utils.device import gpu_name_and_power_limit
 from phovo_tpu.utils.trajectory import format_pose_line
 
-ROOT = Path("/tmp/phovo_mapscale_raw")
+TMP = Path(tempfile.gettempdir())
+ROOT = TMP / "phovo_mapscale_raw"
 SHAPE = (480, 640)
 
 
@@ -70,7 +75,7 @@ def _lap_state(k: int, n: int, laps: float) -> np.ndarray:
 def build_raw(root: Path, n: int, laps: float) -> None:
     """Render the sequence STRAIGHT into the raw v2 memmap layout (no PNG
     round trip: at 1,200 VGA frames the PNG encode+decode would dominate
-    the whole experiment on this container's 2 cores)."""
+    the whole experiment)."""
     meta_file = root / "meta.json"
     if meta_file.is_file():
         meta = json.loads(meta_file.read_text())
@@ -136,7 +141,7 @@ def run_pipeline(args, pg_solver: str, out: str) -> dict:
     if getattr(args, "pg_incremental", 0):
         cmd += ["--pg-incremental", str(args.pg_incremental)]
     t0 = time.time()
-    p = subprocess.run(cmd, capture_output=True, text=True, cwd="/root/repo")
+    p = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO)
     wall = time.time() - t0
     if p.returncode != 0:
         print(p.stdout[-2000:])
@@ -195,10 +200,10 @@ def main() -> int:
     print(f"building {args.frames}-frame raw dataset ({args.laps} laps) ...")
     build_raw(ROOT, args.frames, args.laps)
 
-    rows = [run_pipeline(args, "cg", "/tmp/mapscale_traj_cg.txt")]
+    rows = [run_pipeline(args, "cg", str(TMP / "mapscale_traj_cg.txt"))]
     print(json.dumps(rows[0]))
     if args.cross_check:
-        rows.append(run_pipeline(args, "dense", "/tmp/mapscale_traj_dense.txt"))
+        rows.append(run_pipeline(args, "dense", str(TMP / "mapscale_traj_dense.txt")))
         print(json.dumps(rows[1]))
         # trajectory agreement between the two back-end solvers on the
         # SAME data (tracking is deterministic, so differences isolate the
@@ -207,8 +212,8 @@ def main() -> int:
             absolute_trajectory_error, read_trajectory,
         )
 
-        est_cg = read_trajectory("/tmp/mapscale_traj_cg.txt")
-        est_d = read_trajectory("/tmp/mapscale_traj_dense.txt")
+        est_cg = read_trajectory(str(TMP / "mapscale_traj_cg.txt"))
+        est_d = read_trajectory(str(TMP / "mapscale_traj_dense.txt"))
         cross = absolute_trajectory_error(est_cg, est_d)
         rows.append({"cg_vs_dense_ate_m": cross["rmse"]})
         print(json.dumps(rows[-1]))
@@ -216,7 +221,8 @@ def main() -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(
-        {"frames": args.frames, "laps": args.laps, "chunk": args.chunk,
+        {"gpu": gpu_name_and_power_limit(),
+         "frames": args.frames, "laps": args.laps, "chunk": args.chunk,
          "ba_iterations": args.ba, "runs": rows}, indent=2) + "\n")
     print(f"wrote {out}")
     return 0

@@ -31,6 +31,7 @@ import time
 import numpy as np
 
 from phovo_tpu.apps._bootstrap import enable_compilation_cache
+from phovo_tpu.utils.device import jax_devices
 
 enable_compilation_cache()
 
@@ -147,7 +148,7 @@ def main(argv=None):
         )
     elif args.scene == "rotation":
         # rotation-dominant plane scene: stresses the Jacobian rotation
-        # columns and the banded sampling window (VERDICT r2 item 6)
+        # columns (VERDICT r2 item 6)
         I, D, gts, _ = synthetic.make_sequence(
             intr, (H, W), args.frames, args.motion_scale, args.seed,
             trajectory="rotation",
@@ -197,6 +198,7 @@ def main(argv=None):
         with open(args.out_json, "w") as f:
             json.dump(
                 {
+                    "device": jax_devices(),
                     "frames": args.frames,
                     "shape": list(args.shape),
                     "scene": args.scene,

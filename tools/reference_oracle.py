@@ -1,6 +1,6 @@
 """Reference-exact f64 emulation of the reference's three optimizer backends.
 
-PURPOSE — parity oracle only. This module is NOT part of the TPU framework
+PURPOSE — parity oracle only. This module is NOT part of the framework
 and shares no code with it: it exists so the blueprint's headline accuracy
 target ("match the reference trajectory within its ATE bound per preset")
 can be MEASURED instead of asserted. It re-executes the reference's math in

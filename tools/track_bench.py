@@ -1,11 +1,12 @@
-"""Keyframe-tracking throughput bench: level-major shared-source vs scan.
+"""Keyframe-tracking throughput bench: batched shared-keyframe tracking vs
+the serial warm-start scan and the frame chain.
 
-Reproduces the BASELINE.md r5 keyframe-tracking table on the attached
-chip: the analytic and trust-region keyframe trackers through the
-shared-source level-major batch kernels (models/analytic.py
-track_chunk_levelmajor, models/autodiff.py track_chunk_levelmajor_tr)
-against the frame-chain level-major path and the old serial warm-start
-scan. VGA, 256-chunk, the headline 5-level schedule.
+The analytic and trust-region keyframe trackers (models/keyframe.py
+track_chunk, one keyframe shared by a chunk of tracked frames) against the
+frame-chain batched path (align_sequence) and the serial warm-start track.
+VGA, 256-frame chunks, the headline 5-level schedule. Prints the device
+(platform, kind, count, the card's name and power limit) and one JSON line
+per path.
 
 Usage:  python -m tools.track_bench [--chunk 256] [--repeats 10]
 """
@@ -32,22 +33,17 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/phovo_jax_cache")
-    from phovo_tpu.models.analytic import (
-        align_sequence,
-        prep_keyframe,
-        track_chunk_levelmajor,
-        track_levelmajor_eligible,
-        track_sequence_chunk,
-    )
-    from phovo_tpu.models.autodiff import (
-        track_chunk_levelmajor_tr,
-        tr_track_levelmajor_eligible,
-    )
+    from phovo_tpu.apps._bootstrap import enable_compilation_cache
+    from phovo_tpu.models.analytic import align_prepped, align_sequence
+    from phovo_tpu.models.autodiff import align_prepped_tr
+    from phovo_tpu.models.keyframe import prep_keyframe, track_chunk
     from phovo_tpu.ops.camera import TUM_FR1
     from phovo_tpu.utils.config import PhovoConfig
+    from phovo_tpu.utils.device import print_device
     from phovo_tpu.utils.synthetic import make_pair
 
+    dev = print_device()
+    enable_compilation_cache()
     H, W = 480, 640
     B = args.chunk
     REP = args.repeats
@@ -57,7 +53,7 @@ def main() -> int:
             num_levels=5, blur_filter_sizes=(0,) * 5,
             gradient_scales=(0.0625,) * 5, max_iterations=(0, 0, 5, 20, 50),
             lambda_steps=(1.0,) * 5, min_gradient_norms=(mg,) * 5,
-            sampling="nearest", mix_mode="bf16x2g",
+            sampling="nearest",
         )
 
     tr_cfg = PhovoConfig(
@@ -74,11 +70,10 @@ def main() -> int:
 
     I0, D0, I1, D1, _ = make_pair(TUM_FR1, shape=(H, W))
     Is = jnp.asarray(np.stack([I0, I1] * (B // 2)))
-    Ds = jnp.asarray(np.stack([D0, D1] * (B // 2)))
     Is2 = jnp.asarray(np.stack([I0, I1] * ((B + 2) // 2))[: B + 1])
     Ds2 = jnp.asarray(np.stack([D0, D1] * ((B + 2) // 2))[: B + 1])
     kfI, kfD = jnp.asarray(I0), jnp.asarray(D0)
-    rows = []
+    inits = jnp.zeros((B, 6), jnp.float32)
 
     def timed(label, fn):
         fn()
@@ -87,48 +82,38 @@ def main() -> int:
         for _ in range(REP):
             out = fn()
         jax.block_until_ready(out)
-        rows.append(
+        print(json.dumps(
             {"path": label,
-             "pairs_per_s": round(REP * B / (time.perf_counter() - t0), 1)}
-        )
-        print(json.dumps(rows[-1]))
+             "pairs_per_s": REP * B / (time.perf_counter() - t0),
+             "device": dev}
+        ))
 
     for name, mg in (("fixed-75", 0.0), ("early-exit", 300.0)):
         cfg = gn_cfg(mg)
-        assert track_levelmajor_eligible(cfg, (H, W), True)
-        kf_prep = prep_keyframe(kfI, kfD, TUM_FR1, cfg, colsplit=True)
-        inits = jnp.zeros((B, 6), jnp.float32)
+        kf = prep_keyframe(kfI, kfD, TUM_FR1, cfg)
         timed(
-            f"analytic track levelmajor {name}",
-            lambda: jax.block_until_ready(
-                track_chunk_levelmajor(kf_prep, Is, TUM_FR1, inits, cfg).state
-            ),
+            f"analytic track batched {name}",
+            lambda: track_chunk(
+                kf, Is, TUM_FR1, inits, cfg, align_prepped, False
+            ).state,
         )
         timed(
             f"analytic frame chain {name}",
-            lambda: jax.block_until_ready(
-                align_sequence(Is2, Ds2, TUM_FR1, cfg).state
-            ),
+            lambda: align_sequence(Is2, Ds2, TUM_FR1, cfg).state,
         )
         timed(
             f"analytic track serial scan {name}",
-            lambda: jax.block_until_ready(
-                track_sequence_chunk(
-                    kfI, kfD, Is, Ds, TUM_FR1, jnp.zeros(6), cfg, True
-                ).state
-            ),
+            lambda: track_chunk(
+                kf, Is, TUM_FR1, inits, cfg, align_prepped, True
+            ).state,
         )
-    if tr_track_levelmajor_eligible(tr_cfg, (H, W), "linearizer"):
-        kf_prep_tr = prep_keyframe(kfI, kfD, TUM_FR1, tr_cfg, colsplit=True)
-        inits = jnp.zeros((B, 6), jnp.float32)
-        timed(
-            "tr track levelmajor",
-            lambda: jax.block_until_ready(
-                track_chunk_levelmajor_tr(
-                    kf_prep_tr, Is, TUM_FR1, inits, tr_cfg
-                ).state
-            ),
-        )
+    kf_tr = prep_keyframe(kfI, kfD, TUM_FR1, tr_cfg)
+    timed(
+        "tr track batched",
+        lambda: track_chunk(
+            kf_tr, Is, TUM_FR1, inits, tr_cfg, align_prepped_tr, False
+        ).state,
+    )
     return 0
 
 

@@ -30,8 +30,11 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
 
 # default sweep: the headline pyramid-depth spread, one row per backend
 # family (SURVEY §6: "at every pyramid-depth config")
@@ -68,7 +71,7 @@ def run_one(
     if max_frames:
         cmd += ["--max-frames", str(max_frames)]
     t0 = time.time()
-    p = subprocess.run(cmd, capture_output=True, text=True, cwd="/root/repo")
+    p = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO)
     wall = time.time() - t0
     row = {"preset": preset, "backend": backend, "wall_s": round(wall, 1),
            "exit": p.returncode}
@@ -100,11 +103,13 @@ def run_table(
     quiet: bool = False,
 ) -> list[dict]:
     """Programmatic entry (used by tests/test_real_tum.py)."""
+    from phovo_tpu.utils.device import gpu_name_and_power_limit
+
     dataset = Path(dataset)
     for req in ("rgb.txt", "depth.txt", "groundtruth.txt"):
         if not (dataset / req).is_file():
             raise FileNotFoundError(f"{dataset / req} not found")
-    out_dir = Path("/tmp/phovo_tum_headline")
+    out_dir = Path(tempfile.gettempdir()) / "phovo_tum_headline"
     out_dir.mkdir(parents=True, exist_ok=True)
     rows = [
         run_one(dataset, preset, backend, intrinsics, out_dir, chunk,
@@ -114,11 +119,14 @@ def run_table(
     if out_json:
         Path(out_json).parent.mkdir(parents=True, exist_ok=True)
         Path(out_json).write_text(json.dumps(
-            {"dataset": str(dataset), "intrinsics": intrinsics,
+            {"gpu": gpu_name_and_power_limit(),
+             "dataset": str(dataset), "intrinsics": intrinsics,
              "chunk": chunk, "rows": rows}, indent=2) + "\n")
     if out_md:
         lines = [
             f"# TUM headline table — {dataset.name}",
+            "",
+            "GPU: " + ("; ".join(gpu_name_and_power_limit()) or "none"),
             "",
             "| preset | backend | ATE rmse (m) | RPE trans (m) | RPE rot (deg) | wall (s) |",
             "|---|---|---|---|---|---|",
